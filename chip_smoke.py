@@ -1,0 +1,389 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``noaa_apt_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each (``{"phase": ...}``):
+
+1. ``device``  — the card (``nvidia-smi``), torch and CUDA versions;
+2. ``build``   — the nvcc build of every kernel (one nvcc per source,
+   all at once) and each kernel's ptxas report;
+3. ``kernel``  — each kernel at the main path's shapes for a 10-minute
+   48 kHz standard pass (K1/K2 also at 11025 Hz, K1 also with its tap
+   bank in global memory, K3 also at batch 4),
+   held bit-equal (``torch.equal``) to its plain PyTorch twin on the
+   same inputs, timed with CUDA events beside its twin, a PyTorch
+   library yardstick where one call computes the same function, and the
+   least time the card could take (bytes at 3.35 TB/s, fp32 operations
+   at 67 TFLOP/s: the H100 SXM data sheet);
+4. ``reference`` — the three golden combos of the JAX package's tests
+   decoded on the card: sync positions equal ``tests/golden/*.sync.txt``
+   and the u8 image agrees with the port's CPU decode;
+5. ``main_path`` — the port's CLI (``noaa_apt_tpu_torch.cli.main``) on a
+   synthesized 10-minute 48 kHz pass, then on an 11025 Hz pass, with the
+   kernels' launch counters set to 0 just before and read just after.
+
+Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
+non-zero and prints no result.  It needs CUDA and the repository around
+it; it imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, dense peak (data sheet)
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+PASS_ROWS = 1200  # 10 minutes at 2 rows/s
+REPS = 20
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def time_ms(torch, fn, reps: int = REPS, warmup: int = 2) -> float:
+    """Median of ``reps`` CUDA-event-timed runs after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def synth_wav(path: Path, rate: int, rows: int) -> None:
+    """A clean synthesized pass as a 16-bit mono WAV (port's synth)."""
+    from noaa_apt_tpu_torch import synth
+    from noaa_apt_tpu_torch.io import wav
+
+    sig, _ = synth.synth_recording(n_rows=rows, sample_rate=rate, seed=0)
+    wav.write_wav(path, sig, wav.WavSpec(1, rate, 16, "int"))
+
+
+def assert_equal(torch, name: str, got, want) -> float:
+    """Raise unless ``got`` and ``want`` are equal; returns max |got - want|."""
+    diff = (got.double() - want.double()).abs()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"{name}: kernel != plain twin; {int((diff > 0).sum())} elements differ, "
+            f"max |diff| {float(diff.max())}, first at {int((diff > 0).nonzero()[0, 0])}"
+        )
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def count_jumps(corr, n: int, spr: int, md: int) -> tuple[int, int]:
+    """(jumps, window elements scanned) of the greedy selection over
+    ``corr[:n]`` (host replay of ``ops/select.py``'s loop)."""
+    import numpy as np
+
+    jumps = scanned = 0
+    k, p = 1, 0
+    v = max(float(corr[0]), 0.0) if n > 0 else 0.0
+    while True:
+        lo, hi = p + 1, min(p + md + 1, n)
+        if lo < hi:
+            jumps += 1
+            scanned += hi - lo
+            q = int(np.argmax(corr[lo:hi]))
+            if corr[lo + q] > v:
+                p, v = lo + q, float(corr[lo + q])
+                continue
+        i0 = max(p + md + 1, spr * (k + 1))
+        if i0 >= n:
+            return jumps, scanned
+        k += i0 // spr - k
+        p, v = i0, float(corr[i0])
+
+
+def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) -> dict:
+    """K1, K2, K3 on the main path's inputs for ``wav_path``; returns the
+    per-kernel records of this shape."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from noaa_apt_tpu_torch.core.frequency import Rate
+    from noaa_apt_tpu_torch.graph.decode import DecodeTables
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.ops import demod as dm
+    from noaa_apt_tpu_torch.ops.resample import polyphase_resample, polyphase_resample_plain
+    from noaa_apt_tpu_torch.ops.select import select_peaks, select_peaks_plain
+    from noaa_apt_tpu_torch.ops.sync import selector_params
+    from noaa_apt_tpu_torch.ops.stage import demod_fir_corr, demod_fir_corr_plain
+
+    signal, rate = wav.load_device_ready(wav_path)
+    t = DecodeTables.design(profile, rate)
+    x = torch.from_numpy(np.array(signal)).to(dev)
+    n = x.shape[0]
+    work = t.work_len(n)
+    bank, p_c, s_c = (torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c))
+    taps, tmpl = torch.from_numpy(t.taps).to(dev), torch.from_numpy(t.template).to(dev)
+    inv = dm.inv_sinphi(t.sinphi)
+    out = {}
+
+    # K1: polyphase resample.
+    k1 = lambda: polyphase_resample(x, bank, p_c, s_c, t.m, work)  # noqa: E731
+    k1p = lambda: polyphase_resample_plain(x, bank, p_c, s_c, t.m, work)  # noqa: E731
+    y = k1()
+    err1 = assert_equal(torch, f"polyphase_resample@{label}", y, k1p())
+    live = (t.bank != 0).sum(axis=1)[t.p_c]  # live taps per output class
+    macs = int(live.sum()) * (work // t.l) + int(live[: work % t.l].sum())
+    b1, by1 = bound(n * x.element_size() + work * 4 + t.bank.nbytes + 8 * t.l, 2 * macs)
+    w = int(t.s_c.max()) + t.bank.shape[1]
+    rhs = torch.zeros((t.l, 1, w), dtype=torch.float32, device=dev)
+    for c in range(t.l):
+        rhs[c, 0, int(t.s_c[c]) : int(t.s_c[c]) + t.bank.shape[1]] = bank[int(t.p_c[c])]
+    xf = x.to(torch.float32)[None, None, :]
+    lib1 = time_ms(torch, lambda: F.conv1d(xf, rhs, stride=t.m))
+    out["polyphase_resample"] = dict(
+        max_abs_err=err1, ms=time_ms(torch, k1), plain_ms=time_ms(torch, k1p, reps=3, warmup=1),
+        bound_ms=b1, bound_by=by1, library_ms=lib1,
+        shape=f"{label}: i16[{n}] -> f32[{work}], l={t.l} m={t.m} T={t.bank.shape[1]}",
+    )
+
+    # K2: demod -> FIR -> sync correlation.
+    k2 = lambda: demod_fir_corr(y, taps, tmpl, t.cosphi2, inv)  # noqa: E731
+    k2p = lambda: demod_fir_corr_plain(y, taps, tmpl, t.cosphi2, inv)  # noqa: E731
+    filt, corr = k2()
+    pf, pc = k2p()
+    err2 = assert_equal(torch, f"demod_fir_corr.filt@{label}", filt, pf)
+    err2 = max(err2, assert_equal(torch, f"demod_fir_corr.corr@{label}", corr, pc))
+    k, g = taps.shape[0], tmpl.shape[0]
+    b2, by2 = bound(work * 12 + k * 4 + g, work * (21 + 2 * k - 1 + g - 1))
+    fir_w = taps.flip(0)[None, None, :]
+    tmpl_w = tmpl.to(torch.float32)[None, None, :]
+    dem = dm.demodulate(y, t.cosphi2, inv)
+    lib2 = time_ms(torch, lambda: F.conv1d(dem[None, None, :], fir_w, padding=k - 1))
+    lib2 += time_ms(torch, lambda: F.conv1d(filt[None, None, :], tmpl_w))
+    out["demod_fir_corr"] = dict(
+        max_abs_err=err2, ms=time_ms(torch, k2), plain_ms=time_ms(torch, k2p, reps=3, warmup=1),
+        bound_ms=b2, bound_by=by2, library_ms=lib2,
+        shape=f"{label}: f32[{work}] -> 2 x f32[{work}], k={k} g={g}",
+    )
+
+    # K3: greedy sync selection over corr[:work - g].
+    spr, md, max_peaks = selector_params(work, Rate(profile.work_rate))
+    nv = max(0, work - g)
+    c2 = corr[None, :]
+    k3 = lambda: select_peaks(c2, [nv], spr, md, max_peaks)  # noqa: E731
+    k3p = lambda: select_peaks_plain(c2, [nv], spr, md, max_peaks)  # noqa: E731
+    pk, kk = k3()
+    ppk, pkk = k3p()
+    err3 = assert_equal(torch, f"select_peaks.k@{label}", kk, pkk)
+    err3 = max(err3, assert_equal(torch, f"select_peaks.peaks@{label}", pk, ppk))
+    jumps, scanned = count_jumps(corr[:nv].cpu().numpy(), nv, spr, md)
+    b3, by3 = bound(nv * 4 + max_peaks * 4, scanned)
+    out["select_peaks"] = dict(
+        max_abs_err=err3, ms=time_ms(torch, k3), plain_ms=time_ms(torch, k3p, reps=3, warmup=1),
+        bound_ms=b3, bound_by=by3, library_ms=None, jumps=jumps, peaks=int(kk[0]),
+        shape=f"{label}: f32[1, {work}], n_valid={nv}, spr={spr} md={md} max_peaks={max_peaks}",
+    )
+    if batch4:
+        # Four rows of different length; row 1 carries a long dropout
+        # (forced appends), row 2 a large corr[0] (the seed replacement).
+        rows = corr[None, :].repeat(4, 1)
+        rows[1, 4 * spr : 40 * spr] = -1e6
+        rows[2, 0] = 1e9
+        nvb = [nv, nv - 777, nv // 2, 12 * spr + 99]
+        k3b = lambda: select_peaks(rows, nvb, spr, md, max_peaks)  # noqa: E731
+        k3bp = lambda: select_peaks_plain(rows, nvb, spr, md, max_peaks)  # noqa: E731
+        pb, kb = k3b()
+        ppb, pkb = k3bp()
+        err = max(assert_equal(torch, "select_peaks.k@B=4", kb, pkb),
+                  assert_equal(torch, "select_peaks.peaks@B=4", pb, ppb))
+        host = rows.cpu().numpy()
+        walks = [count_jumps(host[b, : nvb[b]], nvb[b], spr, md) for b in range(4)]
+        bb, byb = bound(sum(nvb) * 4 + 4 * max_peaks * 4, sum(s for _, s in walks))
+        emit("kernel", name="select_peaks", shape=f"{label}: f32[4, {work}], n_valid={nvb}",
+             bit_equal=True, max_abs_err=err, k=kb.tolist(), jumps=[j for j, _ in walks],
+             ms=time_ms(torch, k3b), plain_ms=time_ms(torch, k3bp, reps=3, warmup=1),
+             bound_ms=bb, bound_by=byb, library_ms=None)
+    for name, rec in out.items():
+        emit("kernel", name=name, bit_equal=True, **rec)
+    return out
+
+
+def global_bank_phase(torch, dev) -> None:
+    """K1 with a tap bank too large for shared memory (slow profile at
+    11011 Hz: l = 1600, 312 KB), which it reads from global memory."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch import synth
+    from noaa_apt_tpu_torch.core.frequency import Rate
+    from noaa_apt_tpu_torch.core.profiles import SLOW
+    from noaa_apt_tpu_torch.graph.decode import DecodeTables
+    from noaa_apt_tpu_torch.ops.resample import polyphase_resample, polyphase_resample_plain
+
+    t = DecodeTables.design(SLOW, Rate(11011))
+    sig, _ = synth.synth_recording(n_rows=4, sample_rate=11011, seed=0)
+    x = torch.from_numpy(np.round(sig / np.abs(sig).max() * 30000).astype(np.int16)).to(dev)
+    args = [torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c)]
+    work = t.work_len(x.shape[0])
+    got = polyphase_resample(x, *args, t.m, work)
+    err = assert_equal(torch, "polyphase_resample@11011/slow", got,
+                       polyphase_resample_plain(x, *args, t.m, work))
+    emit("kernel", name="polyphase_resample", bit_equal=True, max_abs_err=err,
+         shape=f"11011/slow: i16[{x.shape[0]}] -> f32[{work}], l={t.l} m={t.m} "
+               f"T={t.bank.shape[1]}, bank {t.bank.nbytes} B in global memory")
+
+
+def reference_phase(torch) -> None:
+    """The golden combos of tests/test_decode_e2e.py on the card."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch import synth
+    from noaa_apt_tpu_torch.core.frequency import Rate
+    from noaa_apt_tpu_torch.core.profiles import FAST, SLOW, STANDARD
+    from noaa_apt_tpu_torch.graph.decode import Decoder
+
+    for name, profile, rate in (
+        ("decode_11025_standard", STANDARD, 11025),
+        ("decode_48000_fast", FAST, 48000),
+        ("decode_48000_slow", SLOW, 48000),
+    ):
+        sig, _ = synth.synth_recording(n_rows=24, sample_rate=rate)
+        gpu, sync = Decoder(profile).decode_render_input(sig, len(sig), Rate(rate))
+        cpu, sync_cpu = Decoder(profile, device="cpu").decode_render_input(sig, len(sig), Rate(rate))
+        golden = [int(v) for v in (ROOT / "tests" / "golden" / f"{name}.sync.txt").read_text().split()]
+        if sync != golden or sync_cpu != golden:
+            raise AssertionError(f"{name}: sync positions differ from the golden list")
+        if gpu.shape != cpu.shape:
+            raise AssertionError(f"{name}: image shape {gpu.shape} vs CPU {cpu.shape}")
+        d = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
+        if d.max(initial=0) > 1 or (d > 0).mean() > 1e-3:
+            raise AssertionError(f"{name}: u8 differs from the CPU decode beyond +-1 on 0.1%")
+        emit("reference", combo=name, rows=int(gpu.shape[0]), sync_equal_golden=True,
+             u8_pixels_differing_from_cpu=int((d > 0).sum()))
+
+
+def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int) -> dict:
+    import numpy as np
+
+    from noaa_apt_tpu_torch import cli, ops
+    from noaa_apt_tpu_torch.io import png
+
+    report: dict = {}
+    ops.reset_launch_counts()
+    rc = cli.main([str(wav_path), "-o", str(out_png), "-q"], report=report)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc} at {rate} Hz")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path at {rate} Hz: {missing}")
+    rows = report["rows"]
+    if abs(rows - PASS_ROWS) > 2:
+        raise AssertionError(f"{rows} rows decoded, synthesized {PASS_ROWS}")
+    gaps = np.diff(np.asarray(report["sync_positions"][1:-1]))
+    if gaps.size == 0 or np.abs(gaps - spr).max() > 1:
+        raise AssertionError(f"interior sync spacing off spr={spr}: {sorted(set(gaps.tolist()))[:8]}")
+    width, height = png.png_size(out_png)
+    if width != 2080 or height != rows:
+        raise AssertionError(f"PNG is {width}x{height}, expected 2080x{rows}")
+    emit("main_path", rate=rate, rows=rows, launches=launches,
+         wall_s=report["wall_s"], load_s=report["load_s"], decode_s=report["decode_s"],
+         finish_s=report["finish_s"], save_s=report["save_s"], stage_ms=report["stage_ms"],
+         sync_spacing=sorted(set(gaps.tolist())))
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        from noaa_apt_tpu_torch.core.profiles import STANDARD
+        from noaa_apt_tpu_torch.device import resolve_device
+        from noaa_apt_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is not beside this script: {e}", file=sys.stderr)
+        return 2
+
+    dev = resolve_device("cuda")
+    smi = nvidia_smi()
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0])
+
+    t0 = time.perf_counter()
+    build_s = _build.build_all()
+    ptxas = {}
+    for name in _build.SOURCES:
+        log = _build.lib_path(name).with_suffix(".log")
+        if log.exists():
+            ptxas[name] = [ln.strip() for ln in log.read_text(errors="replace").splitlines()
+                           if "registers" in ln or "spill" in ln]
+    emit("build", seconds=build_s, wall_s=time.perf_counter() - t0, ptxas=ptxas)
+
+    spr = STANDARD.work_rate * 2080 // 4160
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        wav48, wav11 = tmp / "pass_48000.wav", tmp / "pass_11025.wav"
+        t0 = time.perf_counter()
+        synth_wav(wav48, 48000, PASS_ROWS)
+        synth_wav(wav11, 11025, PASS_ROWS)
+        emit("synth", rows=PASS_ROWS, seconds=time.perf_counter() - t0)
+
+        rec = kernel_phase(torch, dev, wav48, STANDARD, "48000/standard", batch4=True)
+        kernel_phase(torch, dev, wav11, STANDARD, "11025/standard", batch4=False)
+        global_bank_phase(torch, dev)
+        reference_phase(torch)
+        launches = main_path_phase(torch, wav48, tmp / "pass_48000.png", 48000, spr)
+        main_path_phase(torch, wav11, tmp / "pass_11025.png", 11025, spr)
+
+    sources = {
+        "polyphase_resample": ("noaa_apt_tpu_torch/csrc/resample.cu", "noaa_apt_tpu/ops/resample.py:186"),
+        "demod_fir_corr": ("noaa_apt_tpu_torch/csrc/stage.cu", "noaa_apt_tpu/ops/pallas_stage.py:161"),
+        "select_peaks": ("noaa_apt_tpu_torch/csrc/select.cu", "noaa_apt_tpu/ops/pallas_select.py:214"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        r = rec[name]
+        entry = {"name": name, "ok": True, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"]}
+        if name == "select_peaks":
+            entry["jumps"] = r["jumps"]
+        kernels.append(entry)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

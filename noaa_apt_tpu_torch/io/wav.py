@@ -1,0 +1,253 @@
+"""WAV container I/O.
+
+Behavioral contract: reference ``src/wav.rs`` (via the hound crate):
+
+- ``load_wav``: int samples are exposed at their raw integer scale
+  (an i16 sample becomes e.g. -32768..32767 as f32 — *not* normalized),
+  floats pass through; only channel 0 of multichannel files is kept.
+- ``write_wav``: samples are normalized by the (signed) maximum sample
+  before writing as f32 or i16 (``wav.rs:62-98``).
+- The hound "wrong length in header" failure mode
+  (``noaa_apt.rs:114-130``) is handled by reading as many whole frames
+  as the data chunk actually contains.
+
+Implemented directly over the RIFF layout with NumPy (the stdlib
+``wave`` module cannot read float WAVs).  A copy of
+``noaa_apt_tpu/io/wav.py`` without the live-stream reader (the port's
+streaming slice is still to come).
+"""
+
+from __future__ import annotations
+
+import logging
+import struct
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+
+from .. import err
+from ..core.frequency import Rate
+
+log = logging.getLogger(__name__)
+
+_FMT_PCM = 1
+_FMT_FLOAT = 3
+_FMT_EXTENSIBLE = 0xFFFE
+
+
+@dataclass(frozen=True)
+class WavSpec:
+    channels: int
+    sample_rate: int
+    bits_per_sample: int
+    sample_format: str  # "int" | "float"
+
+
+def _decode_pcm(data: bytes, audio_fmt: int, bits: int) -> tuple[str, np.ndarray]:
+    """Raw sample bytes -> ("int"|"float", sample array); trailing
+    partial samples are dropped (hound tolerance, noaa_apt.rs:114-130)."""
+    if audio_fmt == _FMT_PCM:
+        sample_format = "int"
+        if bits == 16:
+            arr = np.frombuffer(data[: len(data) // 2 * 2], dtype="<i2")
+        elif bits == 32:
+            arr = np.frombuffer(data[: len(data) // 4 * 4], dtype="<i4")
+        elif bits == 8:
+            # 8-bit WAV is unsigned with 128 offset; hound exposes it as
+            # a signed value centered at 0.
+            arr = np.frombuffer(data, dtype=np.uint8).astype(np.int16) - 128
+        elif bits == 24:
+            b = np.frombuffer(data[: len(data) // 3 * 3], dtype=np.uint8).reshape(-1, 3)
+            arr = (
+                b[:, 0].astype(np.int32)
+                | (b[:, 1].astype(np.int32) << 8)
+                | (b[:, 2].astype(np.int32) << 16)
+            )
+            arr = (arr << 8) >> 8  # sign-extend
+        else:
+            raise err.WavOpenError(f"Unsupported PCM bit depth: {bits}")
+    elif audio_fmt == _FMT_FLOAT:
+        sample_format = "float"
+        if bits == 32:
+            arr = np.frombuffer(data[: len(data) // 4 * 4], dtype="<f4")
+        elif bits == 64:
+            arr = np.frombuffer(data[: len(data) // 8 * 8], dtype="<f8")
+        else:
+            raise err.WavOpenError(f"Unsupported float bit depth: {bits}")
+    else:
+        raise err.WavOpenError(f"Unsupported WAV format tag: {audio_fmt}")
+    return sample_format, arr
+
+
+def load_wav(path, raw_int16: bool = False) -> tuple[np.ndarray, WavSpec]:
+    """Load a WAV file; returns (float32 channel-0 samples, spec).
+
+    ``raw_int16``: return mono 16-bit PCM as the raw int16 buffer
+    (values identical after the usual exact f32 conversion)."""
+    path = Path(path)
+    try:
+        raw = path.read_bytes()
+    except OSError as e:
+        raise err.WavOpenError(str(e)) from e
+
+    if len(raw) < 12 or raw[0:4] != b"RIFF" or raw[8:12] != b"WAVE":
+        raise err.WavOpenError(f"{path} is not a RIFF/WAVE file")
+
+    fmt = None
+    data = None
+    off = 12
+    while off + 8 <= len(raw):
+        cid = raw[off : off + 4]
+        (size,) = struct.unpack_from("<I", raw, off + 4)
+        body = raw[off + 8 : off + 8 + size]
+        if cid == b"fmt ":
+            fmt = body
+        elif cid == b"data":
+            # Tolerate truncated files whose header claims more data
+            # than exists (the hound issue worked around at
+            # noaa_apt.rs:114-130): take what is actually present.
+            data = raw[off + 8 : off + 8 + size] if off + 8 + size <= len(raw) else raw[off + 8 :]
+        off += 8 + size + (size & 1)
+    if fmt is None or data is None:
+        raise err.WavOpenError(f"{path}: missing fmt/data chunk")
+    if len(fmt) < 16:
+        # A truncated fmt chunk would otherwise escape as a raw
+        # struct.error instead of the documented open error.
+        raise err.WavOpenError(f"{path}: fmt chunk too short ({len(fmt)} bytes)")
+
+    (audio_fmt, channels, sample_rate, _brate, _align, bits) = struct.unpack_from(
+        "<HHIIHH", fmt, 0
+    )
+    if audio_fmt == _FMT_EXTENSIBLE and len(fmt) >= 26:
+        (audio_fmt,) = struct.unpack_from("<H", fmt, 24)
+
+    sample_format, arr = _decode_pcm(data, audio_fmt, bits)
+
+    if channels < 1:
+        raise err.WavOpenError("WAV has zero channels")
+    if channels != 1:
+        log.warning(
+            "WAV file has %d channels (probably stereo), processing only the first one",
+            channels,
+        )
+        arr = arr[: len(arr) // channels * channels : channels]
+
+    spec = WavSpec(channels, sample_rate, bits, sample_format)
+    if raw_int16 and arr.dtype == np.int16 and sample_format == "int" and bits == 16:
+        return arr, spec
+    return arr.astype(np.float32), spec
+
+
+def write_wav(path, signal: np.ndarray, spec: WavSpec) -> None:
+    """Write a normalized signal (reference ``wav.rs:62-98``)."""
+    signal = np.asarray(signal, dtype=np.float32)
+    if signal.size == 0:
+        raise err.InternalError("Can't get maximum of a zero length vector")
+    mx = np.float32(signal.max())  # signed max, as the reference
+
+    if spec.bits_per_sample == 32 and spec.sample_format == "float":
+        out = (signal / mx).astype("<f4").tobytes()
+        fmt_tag = _FMT_FLOAT
+    elif spec.bits_per_sample == 16 and spec.sample_format == "int":
+        scaled = (signal / mx * np.float32(np.iinfo(np.int16).max)).astype(np.float32)
+        # Rust `as i16` saturates; match that.
+        out = np.clip(np.trunc(scaled), -32768, 32767).astype("<i2").tobytes()
+        fmt_tag = _FMT_PCM
+    else:
+        raise err.InternalError(f"Can't write WAV with spec {spec}")
+
+    channels = 1
+    byte_rate = spec.sample_rate * channels * spec.bits_per_sample // 8
+    block_align = channels * spec.bits_per_sample // 8
+    hdr = b"".join(
+        [
+            b"RIFF",
+            struct.pack("<I", 36 + len(out)),
+            b"WAVE",
+            b"fmt ",
+            struct.pack(
+                "<IHHIIHH",
+                16,
+                fmt_tag,
+                channels,
+                spec.sample_rate,
+                byte_rate,
+                block_align,
+                spec.bits_per_sample,
+            ),
+            b"data",
+            struct.pack("<I", len(out)),
+        ]
+    )
+    Path(path).write_bytes(hdr + out)
+
+
+def load(path) -> tuple[np.ndarray, Rate]:
+    """Reference ``noaa_apt::load`` (``noaa_apt.rs:114-130``)."""
+    signal, spec = load_wav(path)
+    return signal, Rate(spec.sample_rate)
+
+
+def _mmap_pcm16_mono(path) -> tuple[np.ndarray, int] | None:
+    """Zero-copy load: an ``np.memmap`` over the data chunk of a mono
+    16-bit PCM WAV, reading only the chunk headers.  Returns
+    ``(int16 view, sample_rate)``, or None when the file needs the
+    general loader (other formats, multichannel, malformed headers).
+    Chunk semantics match :func:`load_wav`: last fmt/data chunk wins,
+    and a data size lying past EOF is clamped to what exists."""
+    path = Path(path)
+    try:
+        size_total = path.stat().st_size
+        with open(path, "rb") as f:
+            head = f.read(12)
+            if len(head) < 12 or head[0:4] != b"RIFF" or head[8:12] != b"WAVE":
+                return None
+            fmt_body = None
+            data_span = None
+            off = 12
+            while off + 8 <= size_total:
+                f.seek(off)
+                hdr = f.read(8)
+                if len(hdr) < 8:
+                    break
+                cid = hdr[0:4]
+                (sz,) = struct.unpack_from("<I", hdr, 4)
+                if cid == b"fmt ":
+                    fmt_body = f.read(min(sz, 64))
+                elif cid == b"data":
+                    data_span = (off + 8, min(sz, size_total - off - 8))
+                off += 8 + sz + (sz & 1)
+    except OSError:
+        return None
+    if fmt_body is None or data_span is None or len(fmt_body) < 16:
+        return None
+    (audio_fmt, channels, sample_rate, _br, _al, bits) = struct.unpack_from(
+        "<HHIIHH", fmt_body, 0
+    )
+    if audio_fmt == _FMT_EXTENSIBLE and len(fmt_body) >= 26:
+        (audio_fmt,) = struct.unpack_from("<H", fmt_body, 24)
+    if audio_fmt != _FMT_PCM or channels != 1 or bits != 16 or sample_rate <= 0:
+        return None
+    o, n_bytes = data_span
+    n = n_bytes // 2
+    if n == 0:
+        return None
+    try:
+        return np.memmap(path, dtype="<i2", mode="r", offset=o, shape=(n,)), sample_rate
+    except (OSError, ValueError):
+        return None
+
+
+def load_device_ready(path) -> tuple[np.ndarray, Rate]:
+    """Like :func:`load`, but 16-bit PCM stays int16 so the decoder can
+    ship half the bytes to the card and convert there (exactly equal to
+    the reference's f32-of-raw-int values; the resample kernel reads
+    i16 directly).  A mono 16-bit PCM file is not even read: the
+    returned array is a read-only ``np.memmap`` over its data chunk."""
+    m = _mmap_pcm16_mono(path)
+    if m is not None:
+        arr, sr = m
+        return arr, Rate(sr)
+    signal, spec = load_wav(path, raw_int16=True)
+    return signal, Rate(spec.sample_rate)

@@ -1,0 +1,214 @@
+"""The port's decode slice (``noaa_apt_tpu_torch``) against the JAX package.
+
+The three golden combos of ``tests/test_decode_e2e.py`` (24 rows, one
+per CPU resample regime) go through both packages' raw-input fused
+render on the CPU.  Integer decisions (sync positions, hence rows) must
+be identical; the u8 image may differ from the JAX package's by +-1 on
+at most 0.1% of pixels (a ``floor(v+0.5)`` knife edge under the few-ulp
+float differences between the two backends).
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from noaa_apt_tpu import cli as jcli  # noqa: F401  (the JAX CLI's decode branch is mirrored below)
+from noaa_apt_tpu.core.frequency import Rate as JRate
+from noaa_apt_tpu.core.profiles import PROFILES as JPROFILES
+from noaa_apt_tpu.err import InternalError as JInternalError
+from noaa_apt_tpu.graph import decode as jdecode
+from noaa_apt_tpu.graph.process import finish_image as j_finish_image
+from noaa_apt_tpu.io import wav as jwav
+from noaa_apt_tpu.synth import synth_recording
+from noaa_apt_tpu.types import ContrastKind as JContrastKind
+from noaa_apt_tpu.types import Rotate as JRotate
+
+from noaa_apt_tpu_torch.core.frequency import Rate
+from noaa_apt_tpu_torch.core.profiles import PROFILES
+from noaa_apt_tpu_torch.err import InternalError
+from noaa_apt_tpu_torch.graph import decode as pdecode
+from noaa_apt_tpu_torch.graph.decode import Decoder, DecodeTables
+from noaa_apt_tpu_torch.io import wav
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+GOLDEN_DIR = ROOT / "tests" / "golden"
+GOLDEN_COMBOS = {
+    "decode_11025_standard": ("standard", 11025),
+    "decode_48000_fast": ("fast", 48000),
+    "decode_48000_slow": ("slow", 48000),
+}
+
+
+def _u8_close(got: np.ndarray, want: np.ndarray, label: str) -> int:
+    """+-1 on at most 0.1% of pixels; returns the count that differ."""
+    assert got.shape == want.shape, label
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    n_diff = int((d > 0).sum())
+    print(f"{label}: {n_diff} of {d.size} u8 pixels differ (max {int(d.max(initial=0))})")
+    assert d.max(initial=0) <= 1
+    assert n_diff <= 1e-3 * d.size
+    return n_diff
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_COMBOS))
+def test_golden_combo_matches_jax(name):
+    profile_name, rate = GOLDEN_COMBOS[name]
+    signal, _ = synth_recording(n_rows=24, sample_rate=rate)
+    gray, sync_pos = Decoder(PROFILES[profile_name], device="cpu").decode_render_input(
+        signal, len(signal), Rate(rate))
+    golden_sync = [int(x) for x in (GOLDEN_DIR / f"{name}.sync.txt").read_text().split()]
+    assert sync_pos == golden_sync
+    # The golden PNG is the JAX package's decode + render_u8, byte-pinned
+    # by tests/test_decode_e2e.py; its fused render equals it there.
+    _u8_close(gray, np.asarray(Image.open(GOLDEN_DIR / f"{name}.png")), f"{name} vs golden")
+    jgray, jsync = jdecode.Decoder(JPROFILES[profile_name]).decode_render_input(
+        signal, len(signal), JRate(rate))
+    assert sync_pos == jsync
+    _u8_close(gray, jgray, f"{name} vs JAX decode_render_input")
+
+
+@pytest.mark.parametrize("rate,noise_db,seed", [(11025, None, 0), (48000, 14.0, 2), (11011, 10.0, 7)])
+def test_synth_equals_jax_synth(rate, noise_db, seed):
+    """The port's synthesizer (which ``chip_smoke.py`` uses to make its
+    passes) gives the JAX package's signal and pattern bit for bit."""
+    from noaa_apt_tpu_torch import synth
+
+    got = synth.synth_recording(n_rows=130, sample_rate=rate, noise_db=noise_db, seed=seed)
+    want = synth_recording(n_rows=130, sample_rate=rate, noise_db=noise_db, seed=seed)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+@pytest.mark.parametrize("kind", ["percent", "minmax"])
+def test_decode_then_render_equals_fused(kind):
+    """``decode`` + ``render_u8`` equals ``decode_render_input`` (the
+    same rows, levels and u8 map), with i16 input like a WAV."""
+    signal, _ = synth_recording(n_rows=16, sample_rate=48000, noise_db=14.0, seed=2)
+    s16 = np.round(signal / np.abs(signal).max() * 32767).astype(np.int16)
+    dec = Decoder(PROFILES["standard"], device="cpu")
+    res = dec.decode(s16, Rate(48000))
+    want = dec.render_u8(res, kind)
+    gray, sync_pos = dec.decode_render_input(s16, len(s16), Rate(48000), kind)
+    assert sync_pos == res.sync_positions
+    np.testing.assert_array_equal(gray, want)
+    assert res.image_np()[0, 0] == 0.0  # NoFilter causal-path quirk
+    lo, hi = (float(v) for v in pdecode._levels(res.image, kind, 0.98))
+    np.testing.assert_array_equal(dec.render_u8_levels(res, lo, hi), want)
+
+
+def test_percent_levels_match_host_scan():
+    """The device bucket search equals the reference's sequential scan
+    (``post/contrast.percent``) on the decoded image, and the device u8
+    map equals the host ``map_signal_u8`` at those levels."""
+    from noaa_apt_tpu_torch.post import contrast
+
+    signal, _ = synth_recording(n_rows=14, sample_rate=11025, noise_db=10.0, seed=4)
+    dec = Decoder(PROFILES["standard"], device="cpu")
+    res = dec.decode(signal, Rate(11025))
+    lo, hi = pdecode._levels(res.image, "percent", 0.98)
+    assert (float(lo), float(hi)) == contrast.percent(res.signal(), 0.98)
+    np.testing.assert_array_equal(dec.render_u8(res, "percent"),
+                                  contrast.map_signal_u8(res.image_np(), float(lo), float(hi)))
+
+
+def test_no_sync_path():
+    signal, _ = synth_recording(n_rows=16, sample_rate=11025)
+    res = Decoder(PROFILES["standard"], device="cpu").decode(signal, Rate(11025), sync=False)
+    jres = jdecode.Decoder(JPROFILES["standard"]).decode(signal, JRate(11025), sync=False)
+    assert res.sync_positions is None and res.n_rows == jres.n_rows
+    assert res.image_np()[0, 0] == 0.0
+
+
+def test_tables_override_from_jax_arrays():
+    """``Decoder(tables=...)`` runs on the JAX package's own arrays and
+    decodes identically to the port's designed tables; a table for
+    another rate is refused."""
+    jdec = jdecode.Decoder(JPROFILES["standard"])
+    from noaa_apt_tpu.ops import demod as jdm
+    from noaa_apt_tpu.ops import resample as jrs
+
+    l, m = 13, 50
+    coeff = jdec._ingest_filter(JRate(48000)).resample(JRate(48000), JRate(48000 * l)).design()
+    p_c, s_c, bank, _, offset = jrs._phase_tables(jrs.resample_plan(1, l, m, coeff))
+    carrier, taps, template = jdec._chain_params()
+    cosphi2, sinphi = jdm.demod_constants(carrier)
+    tables = DecodeTables.from_numpy(
+        input_rate=48000, work_rate=12480, l=l, m=m, offset=offset, p_c=p_c, s_c=s_c,
+        bank=bank, taps=taps, template=template, cosphi2=cosphi2, sinphi=sinphi)
+    signal, _ = synth_recording(n_rows=12, sample_rate=48000, seed=1)
+    got = Decoder(PROFILES["standard"], device="cpu", tables=tables).decode_render_input(
+        signal, len(signal), Rate(48000))
+    want = Decoder(PROFILES["standard"], device="cpu").decode_render_input(
+        signal, len(signal), Rate(48000))
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[0], want[0])
+    with pytest.raises(InternalError, match="tables are for"):
+        Decoder(PROFILES["standard"], device="cpu", tables=tables).decode(signal, Rate(11025))
+
+
+def test_guards_raise_the_same_messages():
+    """The 10-row guard and the 5-sync guard raise the JAX package's
+    messages."""
+    short, _ = synth_recording(n_rows=4, sample_rate=11025)
+    with pytest.raises(JInternalError) as jexc:
+        jdecode.Decoder(JPROFILES["standard"]).decode(short, JRate(11025))
+    dec = Decoder(PROFILES["standard"], device="cpu")
+    for call in (lambda: dec.decode(short, Rate(11025)),
+                 lambda: dec.decode_render_input(short, len(short), Rate(11025))):
+        with pytest.raises(InternalError) as exc:
+            call()
+        assert str(exc.value) == str(jexc.value)
+    assert str(pdecode._check_sync_count([0, 1, 2, 3])) == str(jdecode._check_sync_count([0, 1, 2, 3]))
+    assert pdecode._check_sync_count([0, 1, 2, 3, 4]) is None
+    with pytest.raises(InternalError, match="l == 1"):
+        dec.decode(short, Rate(24960))
+
+
+def test_cli_matches_jax_cli_decode(tmp_path):
+    """``python -m noaa_apt_tpu_torch in.wav -o out.png --device cpu``
+    writes a 2080-wide RGBA PNG whose pixels match the JAX CLI's decode
+    branch (cli.py:451-519) under the +-1 / 0.1% criterion."""
+    signal, _ = synth_recording(n_rows=24, sample_rate=11025, noise_db=20.0, seed=9)
+    wav_path, png_path = tmp_path / "pass.wav", tmp_path / "out.png"
+    wav.write_wav(wav_path, signal, wav.WavSpec(1, 11025, 16, "int"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "noaa_apt_tpu_torch", str(wav_path), "-o", str(png_path),
+         "--device", "cpu", "-q"],
+        cwd=ROOT, capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = np.asarray(Image.open(png_path))
+    assert got.shape[1:] == (2080, 4)
+
+    jsig, jrate = jwav.load_device_ready(wav_path)
+    jgray, _ = jdecode.Decoder(JPROFILES["standard"]).decode_render_input(
+        jsig, len(jsig), jrate, "percent", 0.98)
+    want = j_finish_image(jgray, JContrastKind.PERCENT, JRotate.NO)
+    _u8_close(got, want, "CLI vs JAX CLI decode branch")
+
+
+def test_cli_rotate_and_minmax(tmp_path):
+    from noaa_apt_tpu_torch import cli
+    from noaa_apt_tpu_torch.post import processing
+
+    signal, _ = synth_recording(n_rows=12, sample_rate=11025, seed=5)
+    wav_path = tmp_path / "pass.wav"
+    wav.write_wav(wav_path, signal, wav.WavSpec(1, 11025, 16, "int"))
+    report: dict = {}
+    assert cli.main([str(wav_path), "-o", str(tmp_path / "a.png"), "--device", "cpu", "-q",
+                     "-c", "minmax"], report=report) == 0
+    assert cli.main([str(wav_path), "-o", str(tmp_path / "b.png"), "--device", "cpu", "-q",
+                     "-c", "minmax", "-R", "yes"]) == 0
+    a = np.array(Image.open(tmp_path / "a.png"))
+    processing.rotate(a)
+    np.testing.assert_array_equal(a, np.asarray(Image.open(tmp_path / "b.png")))
+    assert report["rows"] == a.shape[0] and set(report["stage_ms"]) >= {"resample", "select"}
+    assert cli.main([str(tmp_path / "missing.wav"), "--device", "cpu", "-q"]) == 1

@@ -1,0 +1,353 @@
+"""The port's ops (``noaa_apt_tpu_torch.ops``) against the JAX package.
+
+Same inputs, made from seeded numpy, go through the JAX function and its
+counterpart in the port, on the CPU.  Pallas kernels run as the JAX
+package's own tests run them (``interpret=True``); the port runs the
+plain PyTorch twins of its CUDA kernels, which is what its wrappers do
+for CPU tensors.  ``tests/test_torch_cuda.py`` holds each kernel
+bit-equal to its twin on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from noaa_apt_tpu.core.frequency import Rate as JRate
+from noaa_apt_tpu.core.profiles import PROFILES as JPROFILES
+from noaa_apt_tpu.graph.decode import Decoder as JDecoder
+from noaa_apt_tpu.ops import demod as jdm
+from noaa_apt_tpu.ops import resample as jrs
+from noaa_apt_tpu.ops import sync as jsy
+from noaa_apt_tpu.ops.pallas_select import select_peaks as j_select_peaks
+from noaa_apt_tpu.ops.pallas_select import select_peaks_batch as j_select_peaks_batch
+from noaa_apt_tpu.ops.pallas_stage import make_demod_fir_corr
+from noaa_apt_tpu.synth import synth_recording
+
+from noaa_apt_tpu_torch.core.frequency import Freq, Rate
+from noaa_apt_tpu_torch.core.profiles import PROFILES
+from noaa_apt_tpu_torch.graph.decode import DecodeTables
+from noaa_apt_tpu_torch.ops import demod as dm
+from noaa_apt_tpu_torch.ops import resample as rs
+from noaa_apt_tpu_torch.ops.select import select_peaks
+from noaa_apt_tpu_torch.ops.stage import demod_fir_corr
+
+torch.set_num_threads(1)
+
+RATES = (11025, 22050, 44100, 48000)
+
+
+def _bits(a) -> np.ndarray:
+    a = np.ascontiguousarray(np.asarray(a, np.float32))
+    return a.view(np.uint32)
+
+
+def _assert_bits_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    if a.dtype.kind == "f":
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    else:
+        np.testing.assert_array_equal(a, b)
+
+
+def _jax_tables(profile_name: str, rate_hz: int):
+    """The JAX package's own tables for (profile, input rate)."""
+    jdec = JDecoder(JPROFILES[profile_name])
+    filt = jdec._ingest_filter(JRate(rate_hz))
+    import math
+
+    g = math.gcd(rate_hz, jdec.work_rate.get_hz())
+    l, m = jdec.work_rate.get_hz() // g, rate_hz // g
+    coeff = filt.resample(JRate(rate_hz), JRate(rate_hz * l)).design()
+    plan = jrs.resample_plan(1000, l, m, coeff)
+    p_c, s_c, bank, _, offset = jrs._phase_tables(plan)
+    carrier, taps, template = jdec._chain_params()
+    cosphi2, sinphi = jdm.demod_constants(carrier)
+    return dict(input_rate=rate_hz, work_rate=jdec.work_rate.get_hz(), l=l, m=m, offset=offset,
+                p_c=p_c, s_c=s_c, bank=bank, taps=taps, template=template,
+                cosphi2=cosphi2, sinphi=sinphi), coeff
+
+
+# -- 1. tables ---------------------------------------------------------------
+@pytest.mark.parametrize("rate_hz", RATES)
+@pytest.mark.parametrize("profile_name", ["standard", "fast", "slow"])
+def test_tables_bit_equal_jax(profile_name, rate_hz):
+    """Filter designs, phase tables, FIR taps, sync template and demod
+    constants designed by the port equal the JAX package's bit for bit."""
+    want, coeff_j = _jax_tables(profile_name, rate_hz)
+    got = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
+    for key, value in want.items():
+        _assert_bits_equal(getattr(got, key), value)
+    # The filter designs themselves (the bank is built from the coeff).
+    from noaa_apt_tpu_torch.core import LowpassDcRemoval
+
+    p = PROFILES[profile_name]
+    filt = LowpassDcRemoval(
+        cutout=Freq.hz(p.resample_cutout, Rate(rate_hz)), atten=p.resample_atten,
+        delta_w=Freq.hz(p.resample_delta_freq, Rate(rate_hz)),
+    ).resample(Rate(rate_hz), Rate(rate_hz * got.l))
+    _assert_bits_equal(filt.design(), coeff_j)
+
+
+def test_decode_tables_round_trip():
+    """``DecodeTables.from_numpy`` takes the JAX package's arrays and
+    round-trips its own."""
+    want, _ = _jax_tables("standard", 48000)
+    from_jax = DecodeTables.from_numpy(**want)
+    designed = DecodeTables.design(PROFILES["standard"], Rate(48000))
+    again = DecodeTables.from_numpy(**designed.as_numpy())
+    for key, value in designed.as_numpy().items():
+        _assert_bits_equal(getattr(from_jax, key), value)
+        _assert_bits_equal(getattr(again, key), value)
+    with pytest.raises(ValueError, match="bank"):
+        DecodeTables.from_numpy(**{**want, "bank": want["bank"][:-1]})
+    with pytest.raises(ValueError, match="p_c must lie"):
+        DecodeTables.from_numpy(**{**want, "p_c": want["p_c"] + want["l"]})
+
+
+# -- 2. demod ----------------------------------------------------------------
+def _ulp_distance(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """|a - b| in units in the last place (ordered-integer distance)."""
+    def ordered(x):
+        i = _bits(x).astype(np.int64)
+        return np.where(i & 0x80000000, 0x80000000 - i, i)
+
+    return np.abs(ordered(a) - ordered(b))
+
+
+@pytest.mark.parametrize("source", ["random", "synth"])
+def test_demod_within_8_ulp_of_jax(source):
+    """The plain op-by-op demod sits within 8 ulp of the JAX package's
+    ``demodulate`` on the CPU (XLA contracts across its barriers, so the
+    two are not bit-equal; PERF.md records the measured spread)."""
+    work = Rate(12480)
+    carrier = Freq.hz(2400.0, work)
+    if source == "random":
+        x = np.random.default_rng(11).normal(0.0, 1000.0, 200_000).astype(np.float32)
+    else:
+        x, _ = synth_recording(n_rows=8, sample_rate=12480, noise_db=20.0, seed=3)
+    from noaa_apt_tpu.core.frequency import Freq as JFreq
+
+    want = np.asarray(jdm.demodulate(jnp.asarray(x), JFreq.hz(2400.0, JRate(12480))))
+    cosphi2, sinphi = dm.demod_constants(carrier)
+    got = dm.demodulate(torch.from_numpy(x), cosphi2, dm.inv_sinphi(sinphi)).numpy()
+    ulp = _ulp_distance(got, want)
+    print(f"demod {source}: {int((ulp > 0).sum())}/{ulp.size} differ, max {int(ulp.max())} ulp")
+    assert got[0] == 0.0
+    assert ulp.max() <= 8
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """Correctly rounded f32 fused multiply-add, emulated in f64: the
+    product is exact, the sum is rounded to odd (TwoSum error term),
+    then rounded to f32 (Boldo & Melquiond: exact since 53 >= 2*24+2)."""
+    a, b, c = (np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c))
+    s = a * b
+    t = s + c
+    bb = t - s
+    e = (s - (t - bb)) + (c - bb)
+    even = (t.view(np.int64) & 1) == 0
+    t = np.where((e != 0) & even, np.nextafter(t, np.where(e > 0, np.inf, -np.inf)), t)
+    return t.astype(np.float32)
+
+
+def _demod_contracted(x: np.ndarray, cosphi2, inv) -> np.ndarray:
+    """``demod_body`` with the two contractions XLA's CPU backend makes
+    across its optimization barriers: ``fma(-(p*c), cosphi2, fma(p, p,
+    c*c))`` and, in each Newton step, ``y * fma(-(hx*y), y, 1.5)``."""
+    p, c = x[:-1], x[1:]
+    body = _fma32(-(p * c), np.full_like(p, cosphi2), _fma32(p, p, c * c))
+    body = np.where(body > 0, body, np.float32(0))
+    i = body.view(np.int32)
+    y = (np.int32(0x5F3759DF) - (i >> 1)).view(np.float32)
+    hx = np.float32(0.5) * body
+    for _ in range(3):
+        y = y * _fma32(-(hx * y), y, np.full_like(y, np.float32(1.5)))
+    return np.concatenate([[np.float32(0)], (body * y) * np.float32(inv)])
+
+
+@pytest.mark.parametrize("source", ["random", "synth"])
+def test_jax_cpu_demod_contraction_pinned(source):
+    """Where the JAX CPU reference's few-ulp spread comes from: its
+    demod equals, bit for bit, ``demod_body`` with two FMAs (see
+    :func:`_demod_contracted`).  The port keeps one rounding per op, so
+    that each kernel stays bit-equal to its plain twin on any device."""
+    from noaa_apt_tpu.core.frequency import Freq as JFreq
+
+    carrier = JFreq.hz(2400.0, JRate(12480))
+    if source == "random":
+        x = np.random.default_rng(11).normal(0.0, 1000.0, 200_000).astype(np.float32)
+    else:
+        x, _ = synth_recording(n_rows=8, sample_rate=12480, noise_db=20.0, seed=3)
+    cosphi2, sinphi = jdm.demod_constants(carrier)
+    want = np.asarray(jdm.demodulate(jnp.asarray(x), carrier))
+    _assert_bits_equal(_demod_contracted(x, cosphi2, dm.inv_sinphi(sinphi)), want)
+
+
+def test_det_sqrt_matches_formula():
+    """det_sqrt is within 2 ulp of the correctly rounded sqrt and maps
+    +0 to exactly 0."""
+    x = np.concatenate([[0.0], np.random.default_rng(2).uniform(1e-6, 1e8, 10_000)]).astype(np.float32)
+    got = dm.det_sqrt(torch.from_numpy(x)).numpy()
+    assert got[0] == 0.0
+    assert _ulp_distance(got, np.sqrt(x)).max() <= 2
+
+
+# -- 3. resample -------------------------------------------------------------
+RESAMPLE_CASES = [
+    (11025, "standard", "gather"),
+    (44100, "standard", "gather"),
+    (22050, "standard", "gather"),
+    (48000, "fast", "matmul"),
+    (11025, "slow", "matmul"),
+    (48000, "standard", "matmul_packed"),
+    (48000, "slow", "matmul_packed"),
+]
+
+
+def _resample_input(rate_hz: int, seed: int = 0) -> np.ndarray:
+    x, _ = synth_recording(n_rows=2, sample_rate=rate_hz, noise_db=15.0, seed=seed)
+    return np.round(x / np.abs(x).max() * 30000).astype(np.float32)
+
+
+@pytest.mark.parametrize("rate_hz,profile_name,mode", RESAMPLE_CASES)
+def test_resample_matches_jax(rate_hz, profile_name, mode):
+    """The plain polyphase resample agrees with the JAX ``fast_resample``
+    in every mode the JAX package picks on the CPU."""
+    want_t, coeff = _jax_tables(profile_name, rate_hz)
+    x = _resample_input(rate_hz)
+    jplan = jrs.resample_plan(x.shape[0], want_t["l"], want_t["m"], coeff)
+    assert jplan.mode == mode
+    want = np.asarray(jrs.fast_resample(jnp.asarray(x), jplan))
+    plan = rs.resample_plan(x.shape[0], want_t["l"], want_t["m"], coeff)
+    assert plan.out_len == jplan.out_len
+    got = rs.fast_resample(torch.from_numpy(x), plan).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    # int16 input (the main path's raw PCM) gives the same floats.
+    got16 = rs.fast_resample(torch.from_numpy(x.astype(np.int16)), plan).numpy()
+    _assert_bits_equal(got16, got)
+
+
+@pytest.mark.parametrize("rate_hz,profile_name", [(11025, "standard"), (48000, "slow")])
+def test_resample_chunked_bit_equal(rate_hz, profile_name):
+    """Outputs evaluated in chunks (any k0 split) equal one full-length
+    evaluation bit for bit."""
+    t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
+    x = torch.from_numpy(_resample_input(rate_hz, seed=1).astype(np.int16))
+    n_out = t.work_len(x.shape[0])
+    args = (torch.from_numpy(t.bank), torch.from_numpy(t.p_c), torch.from_numpy(t.s_c), t.m)
+    full = rs.polyphase_resample(x, *args, n_out)
+    cuts = [0, 777, 777 + t.l * 5 + 3, n_out]
+    parts = [rs.polyphase_resample(x, *args, b - a, k0=a) for a, b in zip(cuts, cuts[1:])]
+    _assert_bits_equal(torch.cat(parts).numpy(), full.numpy())
+    small = rs.polyphase_resample_plain(x, *args, n_out, chunk=1000)
+    _assert_bits_equal(small.numpy(), full.numpy())
+
+
+# -- 4. demod -> FIR -> corr -------------------------------------------------
+@pytest.mark.parametrize("profile_name", ["standard", "fast", "slow"])
+def test_demod_fir_corr_matches_jax(profile_name):
+    """The plain fused stage agrees with the Pallas kernel (interpret
+    mode) and with the JAX op chain demodulate -> causal_filter ->
+    sync_correlate."""
+    jdec = JDecoder(JPROFILES[profile_name])
+    carrier, taps, template = jdec._chain_params()
+    cosphi2, sinphi = jdm.demod_constants(carrier)
+    n = 8192
+    y, _ = synth_recording(n_rows=2, sample_rate=jdec.work_rate.get_hz(), noise_db=12.0, seed=5)
+    y = y[:n].astype(np.float32) * np.float32(3000.0)
+    g = len(template)
+
+    jfilt, jcorr = make_demod_fir_corr(taps, template, cosphi2, sinphi, n, interpret=True, block=4096)(
+        jnp.asarray(y))
+    jfilt, jcorr = np.asarray(jfilt), np.asarray(jcorr)
+    ofilt = np.asarray(jrs.causal_filter(jdm.demodulate(jnp.asarray(y), carrier), taps))
+    ocorr = np.asarray(jsy.sync_correlate(jnp.asarray(ofilt), template))
+
+    filt, corr = demod_fir_corr(torch.from_numpy(y), torch.from_numpy(taps),
+                                torch.from_numpy(template), cosphi2, dm.inv_sinphi(sinphi))
+    filt, corr = filt.numpy(), corr.numpy()
+    assert filt.shape == corr.shape == (n,)
+    for want_f, want_c in ((jfilt, jcorr[: n - g]), (ofilt, ocorr)):
+        np.testing.assert_allclose(filt, want_f, rtol=1e-5, atol=1e-5 * np.abs(want_f).max())
+        np.testing.assert_allclose(corr[: n - g], want_c, rtol=1e-5, atol=1e-5 * np.abs(want_c).max())
+
+
+def test_sync_correlate_drops_last_window():
+    from noaa_apt_tpu_torch.ops.sync import sync_correlate
+
+    x = np.random.default_rng(4).normal(size=500).astype(np.float32)
+    tmpl = jsy.generate_sync_frame(JRate(12480))
+    want = np.asarray(jsy.sync_correlate(jnp.asarray(x), tmpl))
+    got = sync_correlate(torch.from_numpy(x), tmpl).numpy()
+    assert got.shape == want.shape == (500 - len(tmpl),)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    assert sync_correlate(torch.from_numpy(x), tmpl, n_valid=300).shape == (300 - len(tmpl),)
+
+
+# -- 5. selector -------------------------------------------------------------
+def _selector_oracles(corr: np.ndarray, n_valid: int, spr: int, md: int, max_peaks: int, block: int):
+    wr = JRate(2 * spr)
+    host = jsy.find_sync_peaks(corr[:n_valid], wr)
+    assert host == jsy.find_sync_peaks_reference(corr[:n_valid], wr)
+    pk, k = j_select_peaks(jnp.asarray(corr), n_valid, spr, md, max_peaks, interpret=True, block=block)
+    assert np.asarray(pk[: int(k)]).tolist() == host
+    dpk, dk = jsy._find_sync_peaks_device(jnp.asarray(corr), n_valid, spr, md, max_peaks)
+    assert np.asarray(dpk[: int(dk)]).tolist() == host
+    return host
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_selector_chunk_boundary_cases(seed):
+    """The chunk-boundary and dropout cases of tests/test_ops.py:318-345:
+    the plain selector equals the Pallas kernel, the host scan, the
+    literal reference and the XLA while_loop, peak for peak."""
+    spr, block = 2080, 4096
+    md = spr * 8 // 10
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(block * 6, block * 9))
+    corr = rng.standard_normal(n).astype(np.float32)
+    if seed == 2:
+        corr[block : block * 4] = -100.0
+    max_peaks = max(16, n // spr + 16)
+    n_valid = n - 777
+    want = _selector_oracles(corr, n_valid, spr, md, max_peaks, block)
+    peaks, k = select_peaks(torch.from_numpy(corr)[None, :], [n_valid], spr, md, max_peaks)
+    assert peaks.dtype == torch.int32 and peaks.shape == (1, max_peaks)
+    assert peaks[0, : int(k[0])].tolist() == want
+    assert not peaks[0, int(k[0]):].any()
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_selector_batched(seed):
+    """Batch of 3 rows with different n_valid (a dropout row, an i=0
+    replacement row): one batched call equals the batched Pallas kernel
+    row by row and each row's oracles."""
+    spr, block, B = 2080, 4096, 3
+    md = spr * 8 // 10
+    rng = np.random.default_rng(100 + seed)
+    n = block * 5
+    corr = rng.standard_normal((B, n)).astype(np.float32)
+    corr[1, block : block * 3] = -100.0
+    corr[2, 0] = 50.0
+    n_valids = np.array([n - 777, n - spr, spr + 99], np.int32)
+    max_peaks = max(16, n // spr + 16)
+    jp, jk = j_select_peaks_batch(jnp.asarray(corr), jnp.asarray(n_valids), spr, md, max_peaks,
+                                  interpret=True, block=block)
+    peaks, k = select_peaks(torch.from_numpy(corr), n_valids, spr, md, max_peaks)
+    for b in range(B):
+        want = jsy.find_sync_peaks(corr[b, : n_valids[b]], JRate(2 * spr))
+        assert np.asarray(jp[b, : int(jk[b])]).tolist() == want
+        assert peaks[b, : int(k[b])].tolist() == want, f"row {b}"
+
+
+def test_selector_overflow_and_validation():
+    corr = torch.zeros((1, 50_000))
+    with pytest.raises(RuntimeError, match="max_peaks"):
+        select_peaks(corr, [50_000], 2080, 1664, 3)
+    with pytest.raises(ValueError, match="n_valid"):
+        select_peaks(corr, [50_001], 2080, 1664, 64)
+    with pytest.raises(ValueError, match="2-D"):
+        select_peaks(corr[0], [10], 2080, 1664, 64)

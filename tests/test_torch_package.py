@@ -1,0 +1,149 @@
+"""Isolation and device rules of the PyTorch port (``noaa_apt_tpu_torch``).
+
+- it imports neither ``jax`` nor any module of ``noaa_apt_tpu``;
+- its entry points run on the card and raise without CUDA unless the
+  caller asks for the CPU;
+- importing its kernel modules needs no ``nvcc`` (kernels build at the
+  first launch on a CUDA tensor).
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from noaa_apt_tpu_torch.core.profiles import STANDARD
+from noaa_apt_tpu_torch.device import resolve_device
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "noaa_apt_tpu_torch"
+
+
+def _run_py(code: str, env=None) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=240, env=env)
+
+
+def test_port_never_loads_jax_or_the_jax_package():
+    code = (
+        "import sys\n"
+        "import noaa_apt_tpu_torch, noaa_apt_tpu_torch.cli, noaa_apt_tpu_torch.graph.decode\n"
+        "import noaa_apt_tpu_torch.graph.process, noaa_apt_tpu_torch.ops.resample\n"
+        "import noaa_apt_tpu_torch.ops.stage, noaa_apt_tpu_torch.ops.select\n"
+        "import noaa_apt_tpu_torch.synth, noaa_apt_tpu_torch.io.wav, noaa_apt_tpu_torch.io.png\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'noaa_apt_tpu' or m.startswith('noaa_apt_tpu.'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n"
+    )
+    proc = _run_py(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|noaa_apt_tpu)(?:\.|\s|$)", re.M)
+
+
+def test_source_scan_finds_no_jax_imports():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    offenders = [str(p.relative_to(ROOT)) for p in files if _IMPORT.search(p.read_text())]
+    assert offenders == []
+
+
+def test_kernel_modules_import_without_nvcc(tmp_path):
+    """No nvcc on PATH and none named: importing every kernel module
+    still works and builds nothing."""
+    env = {k: v for k, v in os.environ.items() if k not in ("NVCC", "CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = str(tmp_path)
+    code = (
+        "import noaa_apt_tpu_torch.ops.resample, noaa_apt_tpu_torch.ops.stage\n"
+        "import noaa_apt_tpu_torch.ops.select\n"
+        "from noaa_apt_tpu_torch.ops import _build, launch_counts\n"
+        "assert _build._libs == {}\n"
+        "assert launch_counts() == {'polyphase_resample': 0, 'demod_fir_corr': 0, 'select_peaks': 0}\n"
+    )
+    proc = _run_py(code, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the no-CUDA refusal cannot be shown here")
+    from noaa_apt_tpu_torch import cli
+    from noaa_apt_tpu_torch.graph.decode import Decoder
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Decoder(STANDARD)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main([str(tmp_path / "any.wav"), "-o", str(tmp_path / "out.png")])
+    assert not (tmp_path / "out.png").exists()
+    assert Decoder(STANDARD, device="cpu").device == torch.device("cpu")
+
+
+def test_wrappers_take_the_plain_twin_only_for_cpu_tensors():
+    """A CPU tensor runs the twin and counts no launch."""
+    from noaa_apt_tpu_torch.ops import launch_counts, reset_launch_counts
+    from noaa_apt_tpu_torch.ops.select import select_peaks
+
+    reset_launch_counts()
+    select_peaks(torch.zeros((1, 100)), [100], 20, 16, 16)
+    assert launch_counts() == {"polyphase_resample": 0, "demod_fir_corr": 0, "select_peaks": 0}
+
+
+def test_resolve_device_pins_fp32():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_png_writer_round_trips(tmp_path):
+    from PIL import Image
+
+    from noaa_apt_tpu_torch.io import png
+
+    rng = np.random.default_rng(0)
+    rgba = rng.integers(0, 256, (7, 2080, 4), dtype=np.uint8)
+    gray = rng.integers(0, 256, (5, 33), dtype=np.uint8)
+    png.write_png(tmp_path / "a.png", rgba)
+    png.write_png(tmp_path / "b.png", gray)
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "a.png")), rgba)
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "b.png")), gray)
+    assert png.png_size(tmp_path / "a.png") == (2080, 7)
+    with pytest.raises(ValueError):
+        png.encode_png(rgba[..., :3])
+
+
+def test_wav_loader_keeps_int16(tmp_path):
+    from noaa_apt_tpu_torch.io import wav
+
+    sig = np.sin(np.arange(5000) / 7.0).astype(np.float32)
+    wav.write_wav(tmp_path / "a.wav", sig, wav.WavSpec(1, 11025, 16, "int"))
+    x, rate = wav.load_device_ready(tmp_path / "a.wav")
+    assert x.dtype == np.int16 and rate.get_hz() == 11025 and x.shape == (5000,)
+    f, _ = wav.load(tmp_path / "a.wav")
+    np.testing.assert_array_equal(f, x.astype(np.float32))
+
+
+def test_finish_image_refuses_unported_features():
+    from noaa_apt_tpu_torch.err import InternalError
+    from noaa_apt_tpu_torch.graph.process import finish_image
+    from noaa_apt_tpu_torch.types import ContrastKind, Rotate
+
+    gray = np.zeros((3, 2080), np.uint8)
+    assert finish_image(gray, ContrastKind.PERCENT, Rotate.NO).shape == (3, 2080, 4)
+    for kwargs in ({"kind": ContrastKind.HISTOGRAM, "rotate": Rotate.NO},
+                   {"kind": ContrastKind.PERCENT, "rotate": Rotate.ORBIT},
+                   {"kind": ContrastKind.PERCENT, "rotate": Rotate.NO, "color": object()}):
+        with pytest.raises(InternalError, match="not ported yet"):
+            finish_image(gray, **kwargs)
