@@ -10,18 +10,25 @@ Phases, one JSON line each (``{"phase": ...}``):
    all at once) and each kernel's ptxas report;
 3. ``kernel``  — each kernel at the main path's shapes for a 10-minute
    48 kHz standard pass (K1/K2 also at 11025 Hz, K1 also with its tap
-   bank in global memory, K3 also at batch 4),
-   held bit-equal (``torch.equal``) to its plain PyTorch twin on the
-   same inputs, timed with CUDA events beside its twin, a PyTorch
-   library yardstick where one call computes the same function, and the
-   least time the card could take (bytes at 3.35 TB/s, fp32 operations
-   at 67 TFLOP/s: the H100 SXM data sheet);
+   bank in global memory, K2 also on the fast and slow profiles at both
+   rates, K3 also at batch 4 and on tie-heavy small-integer rows at
+   batch 1 and 4, with its block summaries and its walk's result (k,
+   overflow flag, step count, peaks) held against their plain
+   versions), held bit-equal (``torch.equal``) to its plain PyTorch
+   twin on the same inputs, timed with CUDA events beside its twin, a
+   PyTorch library yardstick where one call computes the same function,
+   and the least time the card could take (bytes at 3.35 TB/s; fp32
+   multiplies and adds at 33.5 T op/s, since the kernels are built with
+   ``--fmad=false`` and issue each one on its own: the H100 SXM data
+   sheet's 67 TFLOP/s counts an FMA as two);
 4. ``reference`` — the three golden combos of the JAX package's tests
    decoded on the card: sync positions equal ``tests/golden/*.sync.txt``
    and the u8 image agrees with the port's CPU decode;
 5. ``main_path`` — the port's CLI (``noaa_apt_tpu_torch.cli.main``) on a
    synthesized 10-minute 48 kHz pass, then on an 11025 Hz pass, with the
-   kernels' launch counters set to 0 just before and read just after.
+   kernels' launch counters set to 0 just before and read just after;
+6. ``select_stage`` — the decoder's select stage (K3 and its one fetch),
+   median of five decodes of the 48 kHz pass, beside K3's own time.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -41,9 +48,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, dense peak (data sheet)
-FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+# H100 SXM fp32 outside the tensor cores: 67 TFLOP/s counts an FMA as
+# two; a separately issued multiply or add is one op at half that rate.
+FP32_OPS_PER_S = 33.5e12
 PASS_ROWS = 1200  # 10 minutes at 2 rows/s
 REPS = 20
+DECODES = 5  # decodes behind the select-stage median
 
 
 def emit(phase: str, **kw) -> None:
@@ -51,12 +61,15 @@ def emit(phase: str, **kw) -> None:
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOPS_PER_S * 1e3
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def time_ms(torch, fn, reps: int = REPS, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event-timed runs after ``warmup``."""
+def time_ms(torch, fn, reps: int = REPS, warmup: int = 2, batch: int = 10) -> float:
+    """Milliseconds per call: the median over ``reps`` CUDA-event-timed
+    runs of ``batch`` back-to-back calls, after ``warmup`` calls.  Back to
+    back, a call's host work overlaps the card's work of the calls before
+    it, unless the call waits for the card itself (K3's fetch does)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -64,10 +77,11 @@ def time_ms(torch, fn, reps: int = REPS, warmup: int = 2) -> float:
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(a.elapsed_time(b) / batch)
     return statistics.median(ts)
 
 
@@ -101,7 +115,8 @@ def assert_equal(torch, name: str, got, want) -> float:
 
 def count_jumps(corr, n: int, spr: int, md: int) -> tuple[int, int]:
     """(jumps, window elements scanned) of the greedy selection over
-    ``corr[:n]`` (host replay of ``ops/select.py``'s loop)."""
+    ``corr[:n]``: the windows the reference evaluates (host replay of
+    ``ops/select.py:select_peaks_plain``)."""
     import numpy as np
 
     jumps = scanned = 0
@@ -123,6 +138,101 @@ def count_jumps(corr, n: int, spr: int, md: int) -> tuple[int, int]:
         p, v = i0, float(corr[i0])
 
 
+def select_case(torch, rows, nvs: list, spr: int, md: int, max_peaks: int, label: str) -> dict:
+    """K3 on ``rows[B, L]``: the whole wrapper, its summary intermediate
+    and its walk kernel (k, overflow flag, step count and peaks), each
+    against its plain version; returns the record of this case, with the
+    walk's step count as the kernel reported it."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch.ops import select as sel
+
+    k3 = lambda: sel.select_peaks(rows, nvs, spr, md, max_peaks)  # noqa: E731
+    k3p = lambda: sel.select_peaks_plain(rows, nvs, spr, md, max_peaks)  # noqa: E731
+    pk, kk = k3()
+    ppk, pkk = k3p()
+    err = max(assert_equal(torch, f"select_peaks.k@{label}", kk, pkk),
+              assert_equal(torch, f"select_peaks.peaks@{label}", pk, ppk))
+    smax, sidx = sel.block_summary(rows, nvs)
+    wmax, widx = sel.block_summary_plain(rows, nvs)
+    assert_equal(torch, f"block_summary.max@{label}", smax, wmax)
+    assert_equal(torch, f"block_summary.index@{label}", sidx, widx)
+
+    nv = np.asarray(nvs, np.int32)
+    summ, _ = sel._summary_launch(rows, nv)
+    res = torch.empty((rows.shape[0], sel.RESULT_HEAD + max_peaks), dtype=torch.int32, device=rows.device)
+    sel._walk_launch(rows, nv, summ, spr, md, max_peaks, res)
+    wpk, wk, wsteps = sel.walk_summaries_plain(rows, wmax, widx, nvs, spr, md, max_peaks)
+    want = torch.cat([wk[:, None], torch.zeros_like(wk)[:, None], wsteps[:, None], wpk], 1)
+    assert_equal(torch, f"select_walk@{label}", res.cpu(), want)
+    steps = res[:, 2].tolist()
+    summary_ms = time_ms(torch, lambda: sel._summary_launch(rows, nv))
+    walk_ms = time_ms(torch, lambda: sel._walk_launch(rows, nv, summ, spr, md, max_peaks, res))
+    host = rows.cpu().numpy()
+    walks = [count_jumps(host[b, : nvs[b]], nvs[b], spr, md) for b in range(len(nvs))]
+    jumps = [j for j, _ in walks]
+    b3, by3 = bound(sum(nvs) * 4 + len(nvs) * max_peaks * 4, sum(s for _, s in walks))
+    one = len(nvs) == 1
+    return dict(
+        max_abs_err=err, ms=time_ms(torch, k3), plain_ms=time_ms(torch, k3p, reps=3, warmup=1, batch=1),
+        bound_ms=b3, bound_by=by3, library_ms=None, summary_ms=summary_ms, walk_ms=walk_ms,
+        jumps=jumps[0] if one else jumps, walk_steps=steps[0] if one else steps,
+        ns_per_jump=walk_ms * 1e6 / max(jumps), peaks=kk.tolist(),
+        shape=f"{label}: f32{list(rows.shape)}, n_valid={nvs}, spr={spr} md={md} max_peaks={max_peaks}",
+    )
+
+
+def stage_case(torch, dev, y, t, label: str):
+    """K2 on the work-rate signal ``y`` with the tables ``t``, against its
+    plain twin; returns (the record of this case, corr)."""
+    import torch.nn.functional as F
+
+    from noaa_apt_tpu_torch.ops import demod as dm
+    from noaa_apt_tpu_torch.ops.stage import demod_fir_corr, demod_fir_corr_plain
+
+    taps, tmpl = torch.from_numpy(t.taps).to(dev), torch.from_numpy(t.template).to(dev)
+    inv = dm.inv_sinphi(t.sinphi)
+    work = y.shape[0]
+    k2 = lambda: demod_fir_corr(y, taps, tmpl, t.cosphi2, inv)  # noqa: E731
+    k2p = lambda: demod_fir_corr_plain(y, taps, tmpl, t.cosphi2, inv)  # noqa: E731
+    filt, corr = k2()
+    pf, pc = k2p()
+    err = max(assert_equal(torch, f"demod_fir_corr.filt@{label}", filt, pf),
+              assert_equal(torch, f"demod_fir_corr.corr@{label}", corr, pc))
+    del pf, pc
+    k, g = taps.shape[0], tmpl.shape[0]
+    # 21 demod ops, k multiplies + k - 1 adds, g - 1 adds per sample.
+    b2, by2 = bound(work * 12 + k * 4 + g, work * (21 + 2 * k - 1 + g - 1))
+    fir_w = taps.flip(0)[None, None, :]
+    tmpl_w = tmpl.to(torch.float32)[None, None, :]
+    dem = dm.demodulate(y, t.cosphi2, inv)
+    lib = time_ms(torch, lambda: F.conv1d(dem[None, None, :], fir_w, padding=k - 1))
+    lib += time_ms(torch, lambda: F.conv1d(filt[None, None, :], tmpl_w))
+    rec = dict(
+        max_abs_err=err, ms=time_ms(torch, k2), plain_ms=time_ms(torch, k2p, reps=3, warmup=1, batch=1),
+        bound_ms=b2, bound_by=by2, library_ms=lib,
+        shape=f"{label}: f32[{work}] -> 2 x f32[{work}], k={k} g={g}",
+    )
+    return rec, corr
+
+
+def stage_profile_phase(torch, dev, wav_path: Path, profile, label: str) -> None:
+    """K2 on another profile's taps and template (K1 makes its input)."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch.graph.decode import DecodeTables
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.ops.resample import polyphase_resample
+
+    signal, rate = wav.load_device_ready(wav_path)
+    t = DecodeTables.design(profile, rate)
+    x = torch.from_numpy(np.array(signal)).to(dev)
+    args = [torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c)]
+    y = polyphase_resample(x, *args, t.m, t.work_len(x.shape[0]))
+    rec, _ = stage_case(torch, dev, y, t, label)
+    emit("kernel", name="demod_fir_corr", bit_equal=True, **rec)
+
+
 def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) -> dict:
     """K1, K2, K3 on the main path's inputs for ``wav_path``; returns the
     per-kernel records of this shape."""
@@ -132,11 +242,8 @@ def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) 
     from noaa_apt_tpu_torch.core.frequency import Rate
     from noaa_apt_tpu_torch.graph.decode import DecodeTables
     from noaa_apt_tpu_torch.io import wav
-    from noaa_apt_tpu_torch.ops import demod as dm
     from noaa_apt_tpu_torch.ops.resample import polyphase_resample, polyphase_resample_plain
-    from noaa_apt_tpu_torch.ops.select import select_peaks, select_peaks_plain
     from noaa_apt_tpu_torch.ops.sync import selector_params
-    from noaa_apt_tpu_torch.ops.stage import demod_fir_corr, demod_fir_corr_plain
 
     signal, rate = wav.load_device_ready(wav_path)
     t = DecodeTables.design(profile, rate)
@@ -144,8 +251,6 @@ def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) 
     n = x.shape[0]
     work = t.work_len(n)
     bank, p_c, s_c = (torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c))
-    taps, tmpl = torch.from_numpy(t.taps).to(dev), torch.from_numpy(t.template).to(dev)
-    inv = dm.inv_sinphi(t.sinphi)
     out = {}
 
     # K1: polyphase resample.
@@ -163,48 +268,20 @@ def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) 
     xf = x.to(torch.float32)[None, None, :]
     lib1 = time_ms(torch, lambda: F.conv1d(xf, rhs, stride=t.m))
     out["polyphase_resample"] = dict(
-        max_abs_err=err1, ms=time_ms(torch, k1), plain_ms=time_ms(torch, k1p, reps=3, warmup=1),
+        max_abs_err=err1, ms=time_ms(torch, k1), plain_ms=time_ms(torch, k1p, reps=3, warmup=1, batch=1),
         bound_ms=b1, bound_by=by1, library_ms=lib1,
         shape=f"{label}: i16[{n}] -> f32[{work}], l={t.l} m={t.m} T={t.bank.shape[1]}",
     )
 
     # K2: demod -> FIR -> sync correlation.
-    k2 = lambda: demod_fir_corr(y, taps, tmpl, t.cosphi2, inv)  # noqa: E731
-    k2p = lambda: demod_fir_corr_plain(y, taps, tmpl, t.cosphi2, inv)  # noqa: E731
-    filt, corr = k2()
-    pf, pc = k2p()
-    err2 = assert_equal(torch, f"demod_fir_corr.filt@{label}", filt, pf)
-    err2 = max(err2, assert_equal(torch, f"demod_fir_corr.corr@{label}", corr, pc))
-    k, g = taps.shape[0], tmpl.shape[0]
-    b2, by2 = bound(work * 12 + k * 4 + g, work * (21 + 2 * k - 1 + g - 1))
-    fir_w = taps.flip(0)[None, None, :]
-    tmpl_w = tmpl.to(torch.float32)[None, None, :]
-    dem = dm.demodulate(y, t.cosphi2, inv)
-    lib2 = time_ms(torch, lambda: F.conv1d(dem[None, None, :], fir_w, padding=k - 1))
-    lib2 += time_ms(torch, lambda: F.conv1d(filt[None, None, :], tmpl_w))
-    out["demod_fir_corr"] = dict(
-        max_abs_err=err2, ms=time_ms(torch, k2), plain_ms=time_ms(torch, k2p, reps=3, warmup=1),
-        bound_ms=b2, bound_by=by2, library_ms=lib2,
-        shape=f"{label}: f32[{work}] -> 2 x f32[{work}], k={k} g={g}",
-    )
+    out["demod_fir_corr"], corr = stage_case(torch, dev, y, t, label)
+    g = t.template.shape[0]
 
     # K3: greedy sync selection over corr[:work - g].
     spr, md, max_peaks = selector_params(work, Rate(profile.work_rate))
     nv = max(0, work - g)
     c2 = corr[None, :]
-    k3 = lambda: select_peaks(c2, [nv], spr, md, max_peaks)  # noqa: E731
-    k3p = lambda: select_peaks_plain(c2, [nv], spr, md, max_peaks)  # noqa: E731
-    pk, kk = k3()
-    ppk, pkk = k3p()
-    err3 = assert_equal(torch, f"select_peaks.k@{label}", kk, pkk)
-    err3 = max(err3, assert_equal(torch, f"select_peaks.peaks@{label}", pk, ppk))
-    jumps, scanned = count_jumps(corr[:nv].cpu().numpy(), nv, spr, md)
-    b3, by3 = bound(nv * 4 + max_peaks * 4, scanned)
-    out["select_peaks"] = dict(
-        max_abs_err=err3, ms=time_ms(torch, k3), plain_ms=time_ms(torch, k3p, reps=3, warmup=1),
-        bound_ms=b3, bound_by=by3, library_ms=None, jumps=jumps, peaks=int(kk[0]),
-        shape=f"{label}: f32[1, {work}], n_valid={nv}, spr={spr} md={md} max_peaks={max_peaks}",
-    )
+    out["select_peaks"] = select_case(torch, c2, [nv], spr, md, max_peaks, label)
     if batch4:
         # Four rows of different length; row 1 carries a long dropout
         # (forced appends), row 2 a large corr[0] (the seed replacement).
@@ -212,19 +289,19 @@ def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) 
         rows[1, 4 * spr : 40 * spr] = -1e6
         rows[2, 0] = 1e9
         nvb = [nv, nv - 777, nv // 2, 12 * spr + 99]
-        k3b = lambda: select_peaks(rows, nvb, spr, md, max_peaks)  # noqa: E731
-        k3bp = lambda: select_peaks_plain(rows, nvb, spr, md, max_peaks)  # noqa: E731
-        pb, kb = k3b()
-        ppb, pkb = k3bp()
-        err = max(assert_equal(torch, "select_peaks.k@B=4", kb, pkb),
-                  assert_equal(torch, "select_peaks.peaks@B=4", pb, ppb))
-        host = rows.cpu().numpy()
-        walks = [count_jumps(host[b, : nvb[b]], nvb[b], spr, md) for b in range(4)]
-        bb, byb = bound(sum(nvb) * 4 + 4 * max_peaks * 4, sum(s for _, s in walks))
-        emit("kernel", name="select_peaks", shape=f"{label}: f32[4, {work}], n_valid={nvb}",
-             bit_equal=True, max_abs_err=err, k=kb.tolist(), jumps=[j for j, _ in walks],
-             ms=time_ms(torch, k3b), plain_ms=time_ms(torch, k3bp, reps=3, warmup=1),
-             bound_ms=bb, bound_by=byb, library_ms=None)
+        emit("kernel", name="select_peaks", bit_equal=True,
+             **select_case(torch, rows, nvb, spr, md, max_peaks, f"{label} B=4"))
+        # Tie-heavy rows: small integers, so equal maxima straddle summary
+        # blocks and window edges; B = 1 and B = 4 (dropout row, seed row).
+        ties = np.random.default_rng(0).integers(0, 4, (4, work), dtype=np.int8).astype(np.float32)
+        ties[1, 4 * spr : 40 * spr] = -1.0
+        ties[2, 0] = 9.0
+        ties = torch.from_numpy(ties).to(dev)
+        emit("kernel", name="select_peaks", bit_equal=True,
+             **select_case(torch, ties[:1], [nv - 5], spr, md, max_peaks, f"{label} ties B=1"))
+        emit("kernel", name="select_peaks", bit_equal=True,
+             **select_case(torch, ties, [nv, nv - 777, nv // 2 + 3, 12 * spr + 99], spr, md,
+                           max_peaks, f"{label} ties B=4"))
     for name, rec in out.items():
         emit("kernel", name=name, bit_equal=True, **rec)
     return out
@@ -315,6 +392,23 @@ def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int) -
     return launches
 
 
+def select_stage_phase(wav_path: Path, k3_ms: float) -> None:
+    """The decoder's select stage (K3 and its one fetch) beside K3's own
+    wrapper time: the median over ``DECODES`` decodes of the pass."""
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph.decode import Decoder
+    from noaa_apt_tpu_torch.io import wav
+
+    signal, rate = wav.load_device_ready(wav_path)
+    decoder, ms = Decoder(STANDARD), []
+    for _ in range(DECODES):
+        decoder.decode_render_input(signal, len(signal), rate)
+        ms.append(decoder.last_stage_ms["select"])
+    stage = statistics.median(ms)
+    emit("select_stage", rate=rate.hz, decodes=DECODES, stage_ms=stage, k3_ms=k3_ms,
+         over_k3_ms=stage - k3_ms)
+
+
 def main() -> int:
     import torch
 
@@ -324,7 +418,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
-        from noaa_apt_tpu_torch.core.profiles import STANDARD
+        from noaa_apt_tpu_torch.core.profiles import FAST, SLOW, STANDARD
         from noaa_apt_tpu_torch.device import resolve_device
         from noaa_apt_tpu_torch.ops import _build
     except ImportError as e:
@@ -345,7 +439,12 @@ def main() -> int:
         if log.exists():
             ptxas[name] = [ln.strip() for ln in log.read_text(errors="replace").splitlines()
                            if "registers" in ln or "spill" in ln]
-    emit("build", seconds=build_s, wall_s=time.perf_counter() - t0, ptxas=ptxas)
+    # Spill and stack bytes per source, summed over its kernels (want 0).
+    spill = {name: sum(int(w.split()[0]) for ln in lines if "spill stores" in ln
+                       for w in ln.split(",") if "spill" in w or "stack frame" in w)
+             for name, lines in ptxas.items()}
+    emit("build", seconds=build_s, wall_s=time.perf_counter() - t0, ptxas=ptxas,
+         spill_and_stack_bytes=spill)
 
     spr = STANDARD.work_rate * 2080 // 4160
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -358,10 +457,14 @@ def main() -> int:
 
         rec = kernel_phase(torch, dev, wav48, STANDARD, "48000/standard", batch4=True)
         kernel_phase(torch, dev, wav11, STANDARD, "11025/standard", batch4=False)
+        for profile in (FAST, SLOW):
+            for path, rate in ((wav48, 48000), (wav11, 11025)):
+                stage_profile_phase(torch, dev, path, profile, f"{rate}/{profile.name}")
         global_bank_phase(torch, dev)
         reference_phase(torch)
         launches = main_path_phase(torch, wav48, tmp / "pass_48000.png", 48000, spr)
         main_path_phase(torch, wav11, tmp / "pass_11025.png", 11025, spr)
+        select_stage_phase(wav48, rec["select_peaks"]["ms"])
 
     sources = {
         "polyphase_resample": ("noaa_apt_tpu_torch/csrc/resample.cu", "noaa_apt_tpu/ops/resample.py:186"),
@@ -376,7 +479,8 @@ def main() -> int:
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"]}
         if name == "select_peaks":
-            entry["jumps"] = r["jumps"]
+            entry.update({key: r[key] for key in ("summary_ms", "walk_ms", "jumps", "walk_steps",
+                                                  "ns_per_jump")})
         kernels.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

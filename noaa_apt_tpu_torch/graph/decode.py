@@ -14,8 +14,8 @@ The hot path of :meth:`Decoder.decode_render_input` on the card:
 1. the raw i16 (or f32) recording is uploaded as-is;
 2. kernel K1 (``ops/resample.py``) resamples it to the work rate;
 3. kernel K2 (``ops/stage.py``) demodulates, filters and correlates;
-4. kernel K3 (``ops/select.py``) selects the sync peaks; the peak list
-   is the first fetch (a few KB);
+4. kernel K3 (``ops/select.py``) selects the sync peaks; its one fetch
+   (k, the overflow flag and the peak list, a few KB) is the first;
 5. row compaction, the row gather with the work->4160 Hz decimation,
    the percent buckets and the u8 map are plain torch ops; the u8 image
    is the second fetch.
@@ -356,15 +356,14 @@ class Decoder:
     def _sync(self, corr: torch.Tensor, work_true: int, g: int, clock: _StageClock):
         """K3 over corr[:work_true - g] -> (peaks on device, host list)."""
         spr, md, max_peaks = sy.selector_params(work_true, self.work_rate)
-        peaks, k = select_peaks(corr[None, :], [max(0, work_true - g)], spr, md, max_peaks)
-        clock.mark("select")
-        k = int(k[0])
-        sync_pos = peaks[0, :k].tolist()
-        clock.mark("fetch_peaks")
+        peaks, lists = select_peaks(corr[None, :], [max(0, work_true - g)], spr, md, max_peaks,
+                                    to_host=True)
+        clock.mark("select")  # K3 and its one fetch of (k, overflow, peaks)
+        sync_pos = lists[0]
         bad = _check_sync_count(sync_pos)
         if bad is not None:
             raise bad
-        return peaks[0, :k], sync_pos
+        return peaks[0, : len(sync_pos)], sync_pos
 
     def _image(self, filt: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """Rows at ``pos`` decimated to 4160 Hz (``decode.rs:122-134``,

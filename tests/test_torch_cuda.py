@@ -17,7 +17,9 @@ from noaa_apt_tpu_torch.core.profiles import PROFILES
 from noaa_apt_tpu_torch.graph.decode import DecodeTables, Decoder
 from noaa_apt_tpu_torch.ops import demod as dm
 from noaa_apt_tpu_torch.ops import resample as rs
-from noaa_apt_tpu_torch.ops.select import select_peaks, select_peaks_plain
+from noaa_apt_tpu_torch.ops import select as sel
+from noaa_apt_tpu_torch.ops.select import (block_summary, block_summary_plain, select_peaks,
+                                           select_peaks_plain)
 from noaa_apt_tpu_torch.ops.stage import demod_fir_corr, demod_fir_corr_plain
 from noaa_apt_tpu_torch.synth import synth_recording
 
@@ -62,6 +64,96 @@ def test_cuda_stage_kernel_bit_equal(cuda_device, profile_name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [2304 * 3 + 7, 2304 - 1, 1000, 150, 2])
+def test_cuda_stage_kernel_ragged_lengths(cuda_device, n):
+    """Lengths off K2's tile (256 threads x 9 outputs), under one tile,
+    and under the template (g = 114) and the taps (k = 37)."""
+    t = DecodeTables.design(PROFILES["standard"], Rate(48000))
+    y = torch.from_numpy(np.random.default_rng(n).normal(0, 3000, n).astype(np.float32)).to(cuda_device)
+    taps, tmpl = torch.from_numpy(t.taps).to(cuda_device), torch.from_numpy(t.template).to(cuda_device)
+    inv = dm.inv_sinphi(t.sinphi)
+    got = demod_fir_corr(y, taps, tmpl, t.cosphi2, inv)
+    want = demod_fir_corr_plain(y, taps, tmpl, t.cosphi2, inv)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_stage_kernel_slow_profile_at_11025(cuda_device):
+    """The slow profile's halo (k + g = 251) on K1's real output."""
+    t = DecodeTables.design(PROFILES["slow"], Rate(11025))
+    x = torch.from_numpy(_pcm(11025)).to(cuda_device)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (t.bank, t.p_c, t.s_c)]
+    y = rs.polyphase_resample(x, *args, t.m, t.work_len(x.shape[0]))
+    taps, tmpl = torch.from_numpy(t.taps).to(cuda_device), torch.from_numpy(t.template).to(cuda_device)
+    inv = dm.inv_sinphi(t.sinphi)
+    got = demod_fir_corr(y, taps, tmpl, t.cosphi2, inv)
+    want = demod_fir_corr_plain(y, taps, tmpl, t.cosphi2, inv)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _tie_rows(rng, B: int, L: int, spr: int) -> np.ndarray:
+    """Small integers: equal maxima straddle block and window edges."""
+    corr = rng.integers(0, 4, (B, L)).astype(np.float32)
+    if B > 1:
+        corr[1, 3 * spr : 9 * spr] = -1.0  # dropout: forced appends
+        corr[2, 0] = 9.0                   # the seed replaces nothing
+    return corr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+def test_cuda_select_kernel_tie_heavy(cuda_device, B):
+    spr, md = 6240, 4992
+    rng = np.random.default_rng(B)
+    L = 40 * spr + 13
+    corr = torch.from_numpy(_tie_rows(rng, B, L, spr)).to(cuda_device)
+    n_valid = [L - 5, L - spr - 1, 17 * spr + 3, L][:B]
+    got = select_peaks(corr, n_valid, spr, md, 64)
+    want = select_peaks_plain(corr, n_valid, spr, md, 64)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    peaks, lists = select_peaks(corr, n_valid, spr, md, 64, to_host=True)
+    assert lists == [want[0][b, : int(want[1][b])].tolist() for b in range(B)]
+    smax, sidx = block_summary(corr, n_valid)
+    wmax, widx = block_summary_plain(corr, n_valid)
+    assert torch.equal(smax, wmax) and torch.equal(sidx, widx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spr", [2080, 6240, 14079])
+def test_cuda_select_walk_matches_plain_walk(cuda_device, spr):
+    """The walk kernel's whole result (k, overflow flag, step count and
+    peaks) against the plain walk over the same summaries; spr 14079
+    gives md 11263, the widest window the walk takes."""
+    md = spr * 8 // 10
+    L = 30 * spr + 13
+    corr = torch.from_numpy(_tie_rows(np.random.default_rng(spr), 4, L, spr)).to(cuda_device)
+    n_valid = [L - 5, L - spr - 1, 17 * spr + 3, L]
+    nv = np.asarray(n_valid, np.int32)
+    summ, _ = sel._summary_launch(corr, nv)
+    res = torch.empty((4, sel.RESULT_HEAD + 64), dtype=torch.int32, device=cuda_device)
+    sel._walk_launch(corr, nv, summ, spr, md, 64, res)
+    smax, sidx = block_summary_plain(corr.cpu(), n_valid)
+    peaks, k, steps = sel.walk_summaries_plain(corr, smax, sidx, n_valid, spr, md, 64)
+    want = torch.cat([k[:, None], torch.zeros_like(k)[:, None], steps[:, None], peaks], 1)
+    assert torch.equal(res.cpu(), want)
+    with pytest.raises(ValueError, match="md <"):
+        select_peaks(corr, n_valid, spr, sel._kernel("select_walk_md_limit")(), 64)
+
+
+@pytest.mark.cuda
+def test_cuda_select_kernel_unaligned_rows(cuda_device):
+    """Rows whose start is off a 16-byte boundary (odd row stride)."""
+    spr, md = 2080, 1664
+    corr = torch.from_numpy(_tie_rows(np.random.default_rng(3), 3, 60_001, spr)).to(cuda_device)
+    for off in range(4):
+        view = corr[:, off:]
+        n_valid = [view.shape[1], view.shape[1] - 31, 2 * spr + off]
+        got = select_peaks(view, n_valid, spr, md, 64)
+        want = select_peaks_plain(view, n_valid, spr, md, 64)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), off
+
+
+@pytest.mark.cuda
 def test_cuda_select_kernel_bit_equal(cuda_device):
     spr = 2080
     md = spr * 8 // 10
@@ -83,3 +175,10 @@ def test_cuda_decode_matches_cpu_decode(cuda_device):
     cpu = Decoder(PROFILES["standard"], device="cpu").decode_render_input(signal, len(signal), Rate(48000))
     assert gpu[1] == cpu[1]
     np.testing.assert_array_equal(gpu[0], cpu[0])
+
+
+@pytest.mark.cuda
+def test_cuda_select_overflow_raises(cuda_device):
+    corr = torch.zeros((1, 50_000), device=cuda_device)
+    with pytest.raises(RuntimeError, match="max_peaks"):
+        select_peaks(corr, [50_000], 2080, 1664, 3)

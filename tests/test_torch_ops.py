@@ -30,7 +30,8 @@ from noaa_apt_tpu_torch.core.profiles import PROFILES
 from noaa_apt_tpu_torch.graph.decode import DecodeTables
 from noaa_apt_tpu_torch.ops import demod as dm
 from noaa_apt_tpu_torch.ops import resample as rs
-from noaa_apt_tpu_torch.ops.select import select_peaks
+from noaa_apt_tpu_torch.ops.select import (SUMMARY_BLOCK, block_summary_plain, select_peaks,
+                                           select_peaks_plain, walk_summaries_plain)
 from noaa_apt_tpu_torch.ops.stage import demod_fir_corr
 
 torch.set_num_threads(1)
@@ -351,3 +352,92 @@ def test_selector_overflow_and_validation():
         select_peaks(corr, [50_001], 2080, 1664, 64)
     with pytest.raises(ValueError, match="2-D"):
         select_peaks(corr[0], [10], 2080, 1664, 64)
+
+
+# -- 6. K3's decomposition: block summaries and the walk over them ------------
+def _brute_summary(corr: np.ndarray, n_valid) -> tuple[np.ndarray, np.ndarray]:
+    B, L = corr.shape
+    nb = -(-L // SUMMARY_BLOCK)
+    smax = np.full((B, nb), -np.inf, np.float32)
+    sidx = np.full((B, nb), -1, np.int64)
+    for b in range(B):
+        for j in range(nb):
+            seg = corr[b, j * SUMMARY_BLOCK : min((j + 1) * SUMMARY_BLOCK, n_valid[b])]
+            if seg.size:
+                smax[b, j] = seg.max()
+                sidx[b, j] = j * SUMMARY_BLOCK + int(np.argmax(seg))
+    return smax, sidx
+
+
+def _decomposition_agrees(corr: np.ndarray, n_valid, spr: int, md: int, max_peaks: int):
+    """Summary step against a brute-force scan; the walk over summaries,
+    the plain twin and the wrapper against each other; returns the
+    per-row peak lists."""
+    t = torch.from_numpy(corr)
+    smax, sidx = block_summary_plain(t, n_valid)
+    want_max, want_idx = _brute_summary(corr, n_valid)
+    np.testing.assert_array_equal(smax.numpy(), want_max)
+    np.testing.assert_array_equal(sidx.numpy(), want_idx)
+    plain = select_peaks_plain(t, n_valid, spr, md, max_peaks)
+    walk = walk_summaries_plain(t, smax, sidx, n_valid, spr, md, max_peaks)
+    wrapped = select_peaks(t, n_valid, spr, md, max_peaks)
+    for got in (walk, wrapped):
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    _, lists = select_peaks(t, n_valid, spr, md, max_peaks, to_host=True)
+    assert lists == [plain[0][b, : int(plain[1][b])].tolist() for b in range(corr.shape[0])]
+    return lists
+
+
+# (spr, length, n_valid, values): md = spr * 8 // 10 is 1664 (a multiple of
+# the 32-position block) for spr 2080, 1672 for spr 2090 and 80 for spr 100.
+DECOMPOSITION_CASES = {
+    "ties": (2080, 30_000, 30_000 - 5, "ties"),
+    "ties_ragged_md": (2090, 29_000, 29_000 - 17, "ties"),
+    "ragged_md": (2090, 29_000, 27_000 + 3, "normal"),
+    "n_valid_in_last_window": (2080, 30_000, 13 * 2080 + 1664 // 2 + 3, "ties"),
+    "window_inside_two_blocks": (100, 6_000, 6_000 - 9, "ties"),
+    "rounded_ties": (2080, 30_000, 30_000 - 31, "rounded"),
+}
+
+
+def _values(rng, kind: str, shape) -> np.ndarray:
+    if kind == "ties":  # small integers: equal maxima straddle blocks and window edges
+        return rng.integers(0, 4, shape).astype(np.float32)
+    if kind == "rounded":
+        return np.round(rng.standard_normal(shape) * 2.0).astype(np.float32)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", sorted(DECOMPOSITION_CASES))
+def test_selector_decomposition_matches_oracles(case):
+    """K3's decomposition (block summaries, then a walk that reads whole
+    blocks from them) equals the plain twin, the Pallas kernel
+    (interpret mode) and the host scan, peak for peak."""
+    spr, L, n_valid, kind = DECOMPOSITION_CASES[case]
+    md = spr * 8 // 10
+    corr = _values(np.random.default_rng(len(case)), kind, (1, L))
+    max_peaks = max(16, L // spr + 16)
+    (got,) = _decomposition_agrees(corr, [n_valid], spr, md, max_peaks)
+    assert got == jsy.find_sync_peaks(corr[0, :n_valid], JRate(2 * spr))
+    pk, k = j_select_peaks(jnp.asarray(corr[0]), n_valid, spr, md, max_peaks, interpret=True)
+    assert np.asarray(pk[: int(k)]).tolist() == got
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_selector_decomposition_batched(seed):
+    """Four tie-heavy rows with different n_valid: a dropout row (forced
+    appends) and a seed-replacement row among them, in one call."""
+    spr, B, L = 2090, 4, 25_000
+    md = spr * 8 // 10
+    corr = _values(np.random.default_rng(200 + seed), "ties", (B, L))
+    corr[1, 2 * spr : 7 * spr] = -1.0
+    corr[2, 0] = 9.0
+    corr[3] = _values(np.random.default_rng(300 + seed), "rounded", L)
+    n_valids = np.array([L - 5, L - 777, L // 2 + 3, 3 * spr + 7], np.int32)
+    max_peaks = max(16, L // spr + 16)
+    got = _decomposition_agrees(corr, n_valids, spr, md, max_peaks)
+    jp, jk = j_select_peaks_batch(jnp.asarray(corr), jnp.asarray(n_valids), spr, md, max_peaks,
+                                  interpret=True)
+    for b in range(B):
+        assert got[b] == jsy.find_sync_peaks(corr[b, : n_valids[b]], JRate(2 * spr)), f"row {b}"
+        assert np.asarray(jp[b, : int(jk[b])]).tolist() == got[b], f"row {b}"

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Time the kernels of several trees of this repository on one GPU.
+
+    python3 tools/kernel_ab.py ROOT [ROOT ...]
+
+Each ROOT is a tree of the repository, for example a ``git archive`` of
+another commit unpacked into a git-ignored directory.  Each ROOT runs in
+a process of its own, one after the other in the order given, so that
+``A B B A`` compares two trees on one card within one call.
+
+A process builds ROOT's kernels, synthesizes the 10-minute 48 kHz pass
+of ``chip_smoke.py``, and runs ROOT's K1, K2 and K3 wrappers on it at
+the main path's shapes (standard profile, B = 1; K3 also on four copies
+of the row with different lengths, B = 4).  It holds each result
+``torch.equal`` to ROOT's plain twin, and times each call with
+``time_ms`` of this tree's ``chip_smoke.py``, so that every tree is
+timed the same way.  Where ROOT's K3 has a separate summary and walk
+kernel, each of those is timed too.  Then ROOT's decoder runs the whole
+pass ``DECODES`` times, and the median of each stage's CUDA-event time
+is reported.
+
+Prints the ``nvidia-smi`` line of the card, then one JSON object per
+ROOT.  Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+DECODES = 10
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_one(root: Path) -> dict:
+    """ROOT's kernels and decoder on the 48 kHz standard pass: -> their
+    times in ms."""
+    sys.path.insert(0, str(root))
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
+        return _run_one(root, Path(tmp) / "pass_48000.wav")
+
+
+def _run_one(root: Path, path: Path) -> dict:
+    import numpy as np
+    import torch
+
+    import noaa_apt_tpu_torch
+    from noaa_apt_tpu_torch.core.frequency import Rate
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph.decode import Decoder, DecodeTables
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.ops import _build
+    from noaa_apt_tpu_torch.ops import demod as dm
+    from noaa_apt_tpu_torch.ops import select as sel
+    from noaa_apt_tpu_torch.ops.resample import polyphase_resample, polyphase_resample_plain
+    from noaa_apt_tpu_torch.ops.stage import demod_fir_corr, demod_fir_corr_plain
+    from noaa_apt_tpu_torch.ops.sync import selector_params
+
+    if not Path(noaa_apt_tpu_torch.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {noaa_apt_tpu_torch.__file__}, not the package under {root}")
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    build_s = _build.build_all()
+    cs.synth_wav(path, 48000, cs.PASS_ROWS)
+    signal, rate = wav.load_device_ready(path)
+    t = DecodeTables.design(STANDARD, rate)
+    x = torch.from_numpy(np.array(signal)).to(dev)
+    work = t.work_len(x.shape[0])
+    bank, p_c, s_c = (torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c))
+    taps, tmpl = torch.from_numpy(t.taps).to(dev), torch.from_numpy(t.template).to(dev)
+    inv = dm.inv_sinphi(t.sinphi)
+    spr, md, max_peaks = selector_params(work, Rate(STANDARD.work_rate))
+
+    k1 = lambda: polyphase_resample(x, bank, p_c, s_c, t.m, work)  # noqa: E731
+    y = k1()
+    y_plain = polyphase_resample_plain(x, bank, p_c, s_c, t.m, work)
+    cs.assert_equal(torch, "polyphase_resample", y, y_plain)
+    k2 = lambda: demod_fir_corr(y, taps, tmpl, t.cosphi2, inv)  # noqa: E731
+    filt, corr = k2()
+    pf, pc = demod_fir_corr_plain(y, taps, tmpl, t.cosphi2, inv)
+    cs.assert_equal(torch, "demod_fir_corr.filt", filt, pf)
+    cs.assert_equal(torch, "demod_fir_corr.corr", corr, pc)
+    rows, nvs = corr[None, :], [max(0, work - t.template.shape[0])]
+    k3 = lambda: sel.select_peaks(rows, nvs, spr, md, max_peaks)  # noqa: E731
+    pk, kk = k3()
+    ppk, pkk = sel.select_peaks_plain(rows, nvs, spr, md, max_peaks)
+    cs.assert_equal(torch, "select_peaks.k", kk, pkk)
+    cs.assert_equal(torch, "select_peaks.peaks", pk, ppk)
+    rows4 = corr[None, :].repeat(4, 1)
+    nvs4 = [nvs[0], nvs[0] - 777, nvs[0] // 2, 12 * spr + 99]
+    k3_b4 = lambda: sel.select_peaks(rows4, nvs4, spr, md, max_peaks)  # noqa: E731
+    pk4, kk4 = k3_b4()
+    ppk4, pkk4 = sel.select_peaks_plain(rows4, nvs4, spr, md, max_peaks)
+    cs.assert_equal(torch, "select_peaks.k@B=4", kk4, pkk4)
+    cs.assert_equal(torch, "select_peaks.peaks@B=4", pk4, ppk4)
+
+    rec = {"root": str(root), "build_s": build_s, "k1_ms": cs.time_ms(torch, k1),
+           "k2_ms": cs.time_ms(torch, k2), "k3_ms": cs.time_ms(torch, k3),
+           "k3_b4_ms": cs.time_ms(torch, k3_b4), "k3_peaks": int(kk[0])}
+    if hasattr(sel, "_walk_launch"):
+        nv = np.asarray(nvs, np.int32)
+        summ, _ = sel._summary_launch(rows, nv)
+        res = torch.zeros((1, 3 + max_peaks), dtype=torch.int32, device=dev)  # room for either head
+        rec["summary_ms"] = cs.time_ms(torch, lambda: sel._summary_launch(rows, nv))
+        walk = lambda: sel._walk_launch(rows, nv, summ, spr, md, max_peaks, res)  # noqa: E731
+        rec["walk_ms"] = cs.time_ms(torch, walk)
+    decoder, stages = Decoder(STANDARD), []
+    for _ in range(DECODES):
+        decoder.decode_render_input(signal, len(signal), rate)
+        stages.append(decoder.last_stage_ms)
+    rec["stage_ms"] = {name: statistics.median(st[name] for st in stages) for name in stages[0]}
+    return rec
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) == 2 and argv[0] == "--one":
+        print(json.dumps(run_one(Path(argv[1]).resolve())), flush=True)
+        return 0
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    print(_chip_smoke().nvidia_smi(), flush=True)
+    for root in argv:
+        out = subprocess.run([sys.executable, __file__, "--one", root], capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr[-4000:], file=sys.stderr)
+            return out.returncode
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
