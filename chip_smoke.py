@@ -10,9 +10,12 @@ Phases, one JSON line each (``{"phase": ...}``):
    all at once) and each kernel's ptxas report;
 3. ``kernel``  — each kernel at the main path's shapes for a 10-minute
    48 kHz standard pass (K1/K2 also at 11025 Hz and on the fast and slow
-   profiles at both rates; K1 also with its tap bank in global memory and
-   in three ``k0`` chunks, each K1 record naming the variant that ran,
-   block-major or per-phase; K3 also at batch 4 and on tie-heavy
+   profiles at both rates; K1 also on seeded 10-minute int16 passes at
+   22050 Hz standard and 44100 Hz standard and slow, on 11011 Hz slow
+   (l = 1600), with float32 input and its tap bank in global memory, and
+   in three ``k0`` chunks at 48 kHz standard and 11025 Hz slow, each K1
+   record naming the variant that ran, "block", "class" or "phase"; K3
+   also at batch 4 and on tie-heavy
    small-integer rows at batch 1 and 4, with its block summaries and its
    walk's result (k, overflow flag, step count, peaks) held against
    their plain versions), held bit-equal (``torch.equal``) to its plain PyTorch
@@ -84,6 +87,22 @@ def time_ms(torch, fn, reps: int = REPS, warmup: int = 2, batch: int = 10) -> fl
         b.synchronize()
         ts.append(a.elapsed_time(b) / batch)
     return statistics.median(ts)
+
+
+def device_ms(torch, fn, calls: int = 20):
+    """Milliseconds of card time per call of ``fn``: the kernels' own
+    time that ``torch.profiler`` records over ``calls`` calls, without
+    the host's share; None if the profiler recorded no card time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    return us / 1e3 / calls if us > 0 else None
 
 
 def nvidia_smi() -> str:
@@ -243,22 +262,31 @@ def resample_case(torch, dev, x, t, label: str):
     lib = time_ms(torch, lambda: F.conv1d(xf, rhs, stride=t.m))
     rec = dict(
         max_abs_err=err, ms=time_ms(torch, k1), plain_ms=time_ms(torch, k1p, reps=3, warmup=1, batch=1),
-        bound_ms=b1, bound_by=by1, library_ms=lib, variant=variant,
+        bound_ms=b1, bound_by=by1, library_ms=lib, variant=variant, device_ms=device_ms(torch, k1),
         shape=f"{label}: i16[{n}] -> f32[{work}], l={t.l} m={t.m} T={t.bank.shape[1]}",
     )
     return rec, y
 
 
+def seeded_pcm(rate: int, seconds: int = 600):
+    """A seeded full-range int16 recording of ``seconds`` at ``rate``."""
+    import numpy as np
+
+    return np.random.default_rng(rate).integers(-32768, 32768, rate * seconds, dtype=np.int16)
+
+
 def k0_split_check(torch, dev, x, t, label: str) -> None:
-    """K1 evaluated in three chunks (k0 off a block and off a CTA of 256
-    blocks) is ``torch.equal`` to one launch."""
-    from noaa_apt_tpu_torch.ops.resample import polyphase_resample
+    """K1 evaluated in three chunks (k0 off a block and off a CTA of the
+    variant's blocks: 256 block-major, 32 class-major) is ``torch.equal``
+    to one launch."""
+    from noaa_apt_tpu_torch.ops.resample import K1_CLASS_BLOCKS, K1_CTA_BLOCKS, polyphase_resample
 
     work = t.work_len(x.shape[0])
     args = [torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c)]
     full = polyphase_resample(x, *args, t.m, work)
     variant = polyphase_resample.last_variant
-    cuts = [0, work // 3 // (256 * t.l) * (256 * t.l) + 5, 2 * work // 3 + 3, work]
+    cta = (K1_CTA_BLOCKS if variant == "block" else K1_CLASS_BLOCKS) * t.l
+    cuts = [0, work // 3 // cta * cta + 5, 2 * work // 3 + 3, work]
     parts = [polyphase_resample(x, *args, t.m, b - a, k0=a) for a, b in zip(cuts, cuts[1:])]
     if polyphase_resample.last_variant != variant:
         raise AssertionError(f"{label}: chunks ran {polyphase_resample.last_variant}, one launch {variant}")
@@ -267,7 +295,7 @@ def k0_split_check(torch, dev, x, t, label: str) -> None:
          shape=label)
 
 
-def stage_profile_phase(torch, dev, wav_path: Path, profile, label: str) -> None:
+def stage_profile_phase(torch, dev, wav_path: Path, profile, label: str, k0_split: bool = False) -> None:
     """K1 and K2 on another profile's tables."""
     import numpy as np
 
@@ -279,8 +307,24 @@ def stage_profile_phase(torch, dev, wav_path: Path, profile, label: str) -> None
     x = torch.from_numpy(np.array(signal)).to(dev)
     rec1, y = resample_case(torch, dev, x, t, label)
     emit("kernel", name="polyphase_resample", bit_equal=True, **rec1)
+    if k0_split:
+        k0_split_check(torch, dev, x, t, label)
     rec, _ = stage_case(torch, dev, y, t, label)
     emit("kernel", name="demod_fir_corr", bit_equal=True, **rec)
+
+
+def resample_rates_phase(torch, dev) -> None:
+    """K1 alone on seeded 10-minute int16 passes at the gather regime's
+    other rates: 22050 Hz standard, 44100 Hz standard and slow."""
+    from noaa_apt_tpu_torch.core.frequency import Rate
+    from noaa_apt_tpu_torch.core.profiles import SLOW, STANDARD
+    from noaa_apt_tpu_torch.graph.decode import DecodeTables
+
+    for rate, profile in ((22050, STANDARD), (44100, STANDARD), (44100, SLOW)):
+        x = torch.from_numpy(seeded_pcm(rate)).to(dev)
+        rec, _ = resample_case(torch, dev, x, DecodeTables.design(profile, Rate(rate)),
+                               f"{rate}/{profile.name} seeded")
+        emit("kernel", name="polyphase_resample", bit_equal=True, **rec)
 
 
 def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) -> dict:
@@ -339,8 +383,10 @@ def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) 
 
 
 def global_bank_phase(torch, dev) -> None:
-    """K1 with a tap bank too large for shared memory (slow profile at
-    11011 Hz: l = 1600, 312 KB), which it reads from global memory."""
+    """K1 on the slow profile at 11011 Hz (l = 1600, a 320 KB tap bank):
+    with float32 input the per-phase variant, whose bank is too large for
+    shared memory and is read from global memory; with int16 input the
+    class-major variant."""
     import numpy as np
 
     from noaa_apt_tpu_torch import synth
@@ -351,17 +397,20 @@ def global_bank_phase(torch, dev) -> None:
 
     t = DecodeTables.design(SLOW, Rate(11011))
     sig, _ = synth.synth_recording(n_rows=4, sample_rate=11011, seed=0)
-    x = torch.from_numpy(np.round(sig / np.abs(sig).max() * 30000).astype(np.int16)).to(dev)
+    x16 = torch.from_numpy(np.round(sig / np.abs(sig).max() * 30000).astype(np.int16)).to(dev)
     args = [torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c)]
-    work = t.work_len(x.shape[0])
-    got = polyphase_resample(x, *args, t.m, work)
-    if polyphase_resample.last_variant != "phase":
-        raise AssertionError(f"11011/slow ran K1's {polyphase_resample.last_variant} variant, not phase")
-    err = assert_equal(torch, "polyphase_resample@11011/slow", got,
-                       polyphase_resample_plain(x, *args, t.m, work))
-    emit("kernel", name="polyphase_resample", bit_equal=True, max_abs_err=err, variant="phase",
-         shape=f"11011/slow: i16[{x.shape[0]}] -> f32[{work}], l={t.l} m={t.m} "
-               f"T={t.bank.shape[1]}, bank {t.bank.nbytes} B in global memory")
+    work = t.work_len(x16.shape[0])
+    for x, want, where in ((x16.to(torch.float32), "phase", f"bank {t.bank.nbytes} B in global memory"),
+                           (x16, "class", "class-major")):
+        got = polyphase_resample(x, *args, t.m, work)
+        if polyphase_resample.last_variant != want:
+            raise AssertionError(f"11011/slow {x.dtype} ran K1's {polyphase_resample.last_variant} "
+                                 f"variant, not {want}")
+        err = assert_equal(torch, f"polyphase_resample@11011/slow {x.dtype}", got,
+                           polyphase_resample_plain(x, *args, t.m, work))
+        emit("kernel", name="polyphase_resample", bit_equal=True, max_abs_err=err, variant=want,
+             shape=f"11011/slow: {str(x.dtype)[6:]}[{x.shape[0]}] -> f32[{work}], l={t.l} m={t.m} "
+                   f"T={t.bank.shape[1]}, {where}")
 
 
 def reference_phase(torch) -> None:
@@ -393,7 +442,7 @@ def reference_phase(torch) -> None:
              u8_pixels_differing_from_cpu=int((d > 0).sum()))
 
 
-def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int) -> dict:
+def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k1_variant: str) -> dict:
     import numpy as np
 
     from noaa_apt_tpu_torch import cli, ops
@@ -410,6 +459,10 @@ def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int) -
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path at {rate} Hz: {missing}")
+    if launches["polyphase_resample"] != 1:
+        raise AssertionError(f"{launches['polyphase_resample']} K1 launches on the {rate} Hz pass, not 1")
+    if polyphase_resample.last_variant != k1_variant:
+        raise AssertionError(f"K1 ran {polyphase_resample.last_variant} at {rate} Hz, not {k1_variant}")
     rows = report["rows"]
     if abs(rows - PASS_ROWS) > 2:
         raise AssertionError(f"{rows} rows decoded, synthesized {PASS_ROWS}")
@@ -495,11 +548,13 @@ def main() -> int:
         kernel_phase(torch, dev, wav11, STANDARD, "11025/standard", batch4=False)
         for profile in (FAST, SLOW):
             for path, rate in ((wav48, 48000), (wav11, 11025)):
-                stage_profile_phase(torch, dev, path, profile, f"{rate}/{profile.name}")
+                stage_profile_phase(torch, dev, path, profile, f"{rate}/{profile.name}",
+                                    k0_split=(profile, rate) == (SLOW, 11025))
+        resample_rates_phase(torch, dev)
         global_bank_phase(torch, dev)
         reference_phase(torch)
-        launches = main_path_phase(torch, wav48, tmp / "pass_48000.png", 48000, spr)
-        main_path_phase(torch, wav11, tmp / "pass_11025.png", 11025, spr)
+        launches = main_path_phase(torch, wav48, tmp / "pass_48000.png", 48000, spr, "block")
+        main_path_phase(torch, wav11, tmp / "pass_11025.png", 11025, spr, "class")
         select_stage_phase(wav48, rec["select_peaks"]["ms"])
 
     sources = {

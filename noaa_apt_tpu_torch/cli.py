@@ -24,6 +24,20 @@ from .types import Contrast, ContrastKind, Rotate
 
 log = logging.getLogger("noaa_apt_tpu_torch")
 
+# ``-c`` and ``-R`` as the reference spells them (``noaa_apt_tpu/cli.py:201-220``),
+# plus the port's own ``percent`` and ``minmax``.  The kinds and the rotation
+# outside PORTED are refused with "not ported yet".
+CONTRASTS = {
+    "98_percent": Contrast.from_percent(0.98),
+    "telemetry": Contrast.telemetry(),
+    "disable": Contrast.minmax(),
+    "histogram": Contrast.histogram(),
+    "percent": Contrast.from_percent(0.98),
+    "minmax": Contrast.minmax(),
+}
+ROTATES = {"auto": Rotate.ORBIT, "yes": Rotate.YES, "no": Rotate.NO}
+PORTED = {ContrastKind.PERCENT, ContrastKind.MINMAX, Rotate.YES, Rotate.NO}
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -35,10 +49,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Output PNG path. Default: ./output.png")
     p.add_argument("-p", "--profile", choices=sorted(PROFILES), default="standard",
                    help="DSP profile. Default: standard.")
-    p.add_argument("-c", "--contrast", choices=["percent", "minmax"], default="percent",
-                   help="Contrast: 98%% percent stretch (default) or min/max.")
-    p.add_argument("-R", "--rotate", choices=["yes", "no"], default="no",
-                   help="Rotate the image 180 degrees. Default: no.")
+    p.add_argument("-c", "--contrast", choices=list(CONTRASTS), default="98_percent",
+                   help='Contrast: "98_percent" (default) or "disable" (min/max); "telemetry" '
+                        'and "histogram" are not ported yet.')
+    p.add_argument("-R", "--rotate", choices=list(ROTATES), default="no",
+                   help='Rotate the image 180 degrees: "yes" or "no" (default); "auto" is not '
+                        "ported yet.")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Where to decode: the card (default) or the plain PyTorch path on the CPU.")
     p.add_argument("-q", "--quiet", action="store_true", help="Don't print info messages.")
@@ -52,9 +68,12 @@ def main(argv=None, report: dict | None = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
                         format="%(levelname)s %(name)s: %(message)s")
+    contrast, rotate = CONTRASTS[args.contrast], ROTATES[args.rotate]
+    for option, name, value in (("-c", args.contrast, contrast.kind), ("-R", args.rotate, rotate)):
+        if value not in PORTED:
+            log.error("%s %s is not ported yet", option, name)
+            return 1
     device = resolve_device(args.device)  # raises without CUDA, before any work
-    contrast = Contrast.from_percent(0.98) if args.contrast == "percent" else Contrast.minmax()
-    rotate = Rotate.YES if args.rotate == "yes" else Rotate.NO
     log.info("noaa-apt-tpu-torch image decoder version %s on %s", __version__, device)
 
     t = [time.perf_counter()]

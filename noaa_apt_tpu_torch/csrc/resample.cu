@@ -1,27 +1,29 @@
-// K1: polyphase L/M resample (the port's ingest kernel), two variants.
+// K1: polyphase L/M resample (the port's ingest kernel), three variants.
 //
 // Replaces: noaa_apt_tpu/ops/resample.py:_blocked_dot, the Pallas
 // per-block dot under _fast_resample_matmul and
 // _fast_resample_matmul_packed, and the gather-dot regime that the JAX
 // package runs outside Pallas (_fast_resample_gather, 11025/22050/44100 Hz).
 //
-// Both compute, for j in [0, out_len) and k = k0 + j = i*l + c (c < l):
+// All compute, for j in [0, out_len) and k = k0 + j = i*l + c (c < l):
 //     y[j] = sum_{t<T} bank[p_c[c], t] * x[s_c[c] + i*m + t]
-// with x read as 0 at or past n.  x is int16 (converted in-register, so
-// the f32 copy of the recording never exists) or float32.
+// with x read as 0 at or past n.  x is int16 (converted in-register or
+// while staging, so the f32 copy of the recording never exists) or
+// float32.
 //
 // Rounding: one rounding per multiply and per add (__fmul_rn/__fadd_rn,
 // built with --fmad=false), taps summed in ascending t from +0.  That is
 // the plain twin's order (ops/resample.py:polyphase_resample_plain), so
-// both variants are bit-equal to it, and each output depends on k alone,
+// every variant is bit-equal to it, and each output depends on k alone,
 // so chunked evaluation (any k0/out_len split) is bit-identical to one
 // launch.
 //
 // Dispatch (ops/resample.py:_k1_variant, a pure function of the shape):
-// "block" for l <= 32 with int16 x when its shared memory fits the
-// card's opt-in limit (the 48 kHz-class rates: 8000 slow, 24000, 32000,
-// 48000, 96000, 192000); "phase" for everything else (the gather regime
-// l = 208..3328 at 11025/22050/44100 Hz, float32 x, l = 39 or 52).
+// with int16 x, "block" for l <= 32 (the 48 kHz-class rates: 8000 slow,
+// 24000, 32000, 48000, 96000, 192000) and "class" for l > 32 (the gather
+// regime l = 208..3328 at 11025/22050/37500/44100 Hz and 11011 Hz, and
+// l = 39 or 52 at 8000 Hz), each where its shared memory fits the card's
+// opt-in limit; "phase" for float32 x.
 //
 // "phase": one thread per output.  Persistent CTAs walk the outputs with
 // a grid stride, so the tap bank (l*T floats) and the phase tables are
@@ -49,6 +51,32 @@
 // after the r loop writes the sums to a y tile over the span, which it
 // stores contiguously.  No per-output divide; 64-bit only for the span.
 //
+// "class": a thread owns one output class c and walks blocks i; its taps
+// bank[p_c[c], .] are the same in every block.  A CTA is 128 consecutive
+// classes [c0, c0+128) (blockIdx.y) by 32 consecutive blocks (blockIdx.x),
+// not persistent.  Shared memory holds only x, as f32 converted once
+// while staging: per block, the segment x[i*m + s_c[c0] + q] for q < seg
+// (0 at or past n), in a row of S >= seg floats (K1_CLASS_STRIDES), so
+// 4*32*S bytes (class_smem; 16 KB at 11025 Hz slow, 74 KB at most,
+// 44100 Hz standard).  seg = max over 128-class tiles of
+// (s_c[last] - s_c[first]) + T, from the host.  A thread stages sample q
+// of 8 segments at once, so 8 loads are in flight, not one per block.
+// s_c[c] = ceil(c*m/l) is nondecreasing, so lane c reads seg[off_c + t]
+// with off_c = s_c[c] - s_c[c0]: a warp's 32 reads are nearly
+// consecutive words (conflict-free for m < l; up to 2-way at 22050 Hz,
+// 4-way at 37500/44100 Hz).  The taps come from the class-major table
+// wc[t*l + c] (ops/resample.py:k1_class_table) in global memory: one
+// coalesced 128-byte row per warp and tap.  Each thread holds the sums
+// of all 32 blocks in registers (kClassGroup), so one tap load serves 32
+// multiply-adds, and each multiply-add is one shared load (at a
+// compile-time offset from one base register), one multiply and one add:
+// no divide, 64-bit only for the segment base.  Threads with c >= l stage
+// but compute nothing (they pass the one barrier).  Holding 8 or 16 sums
+// and reloading the taps per group, staging one load at a time, and
+// staging the taps in shared memory or holding them in registers, and a
+// runtime row stride all ran slower on an H100
+// (tools/kernel_ab.py).
+//
 // Bound on an H100 (chip_smoke.py computes it per run): at 48 kHz
 // standard, bytes are 57.6 MB in and 30 MB out (0.026 ms at 3.35 TB/s),
 // operations 2 per live multiply-add, 1.1 G (0.033 ms at 33.5 T op/s,
@@ -56,7 +84,13 @@
 // variant also multiplies the zero taps of its live groups (10.9 of 16
 // slots per r at 48 kHz standard) and issues about 30 instructions per r
 // per block, of which about 22 are the multiplies and adds: instruction
-// issue and shared-memory loads bound it, not HBM.
+// issue and shared-memory loads bound it, not HBM.  At 11025 Hz slow the
+// class variant does 624 M multiply-adds (the bank's trailing zero taps
+// included, as the twin sums them); its operation bound (live taps) is
+// 0.037 ms, and its shared loads (one per multiply-add, at one warp load
+// per clock per SM) put it near 0.084 ms: shared-load issue bounds it.
+// At 11025 Hz fast (T = 6) the staging and the launch, not the
+// multiply-adds, take most of its time.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -274,6 +308,98 @@ cudaError_t launch_block(const int16_t* x, long long n, const float4* w, const u
   return cudaGetLastError();
 }
 
+// ---- class-major variant ------------------------------------------------
+
+constexpr int kClassThreads = 128;  // classes a CTA owns, one per thread
+constexpr int kClassBlocks = 32;    // blocks a CTA owns
+constexpr int kClassGroup = 32;     // blocks whose sums a thread holds at once
+
+// The row strides of the staged segments, one kernel per stride: a shape
+// takes the least stride S >= seg, so that the 32 shared loads of one tap
+// are one base register plus compile-time offsets b*S (a runtime stride
+// costs an address add per load: 10-15% slower on an H100,
+// tools/kernel_ab.py).  1816 = the opt-in limit / (4*32).  Mirrored by
+// ops/resample.py:K1_CLASS_STRIDES.
+#define K1_CLASS_STRIDES(X) X(32) X(64) X(96) X(128) X(160) X(192) X(256) X(320) X(384) \
+  X(448) X(512) X(576) X(640) X(768) X(1024) X(1280) X(1816)
+
+// Dynamic shared memory: one f32 row of S floats per block.  Mirrored by
+// ops/resample.py:k1_class_smem.
+constexpr size_t class_smem(int stride) { return sizeof(float) * kClassBlocks * (size_t)stride; }
+
+template <int kStride>
+__global__ void __launch_bounds__(kClassThreads)
+class_kernel(const int16_t* __restrict__ x, long long n, const float* __restrict__ wc,
+             const int* __restrict__ s_c, int l, int taps, long long m, int seg,
+             long long i_first, long long k0, long long out_len, float* __restrict__ y) {
+  extern __shared__ float s_x[];
+  const int c0 = blockIdx.y * kClassThreads;
+  const int c = c0 + threadIdx.x;
+  const long long i0 = i_first + (long long)blockIdx.x * kClassBlocks;
+  // Stage sample q of the 32 segments 8 at a time: 8 independent loads in
+  // flight per thread, not one latency per block.
+  const long long base = i0 * m + __ldg(s_c + c0);
+  for (int q = threadIdx.x; q < seg; q += kClassThreads) {
+#pragma unroll 1
+    for (int b0 = 0; b0 < kClassBlocks; b0 += 8) {
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const long long p = base + (b0 + j) * m + q;
+        v[j] = p < n ? static_cast<float>(__ldg(x + p)) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s_x[(b0 + j) * kStride + q] = v[j];
+    }
+  }
+  __syncthreads();  // the only barrier: threads with c >= l leave after it
+  if (c >= l) return;
+
+  // The sums of kClassGroup blocks in registers: per tap, one tap load
+  // serves kClassGroup multiply-adds, each one shared load, one multiply
+  // and one add.
+  const int off = __ldg(s_c + c) - __ldg(s_c + c0);
+  const long long k_end = k0 + out_len;
+  for (int g = 0; g < kClassBlocks; g += kClassGroup) {
+    if ((i0 + g) * l >= k_end) break;  // the same in every lane
+    float acc[kClassGroup];
+#pragma unroll
+    for (int b = 0; b < kClassGroup; ++b) acc[b] = 0.f;
+    const float* xs = s_x + g * kStride + off;
+    const float* wp = wc + c;
+#pragma unroll 4
+    for (int t = 0; t < taps; ++t) {
+      const float w = __ldg(wp + (long long)t * l);
+#pragma unroll
+      for (int b = 0; b < kClassGroup; ++b) acc[b] = __fadd_rn(acc[b], __fmul_rn(w, xs[b * kStride + t]));
+    }
+#pragma unroll
+    for (int b = 0; b < kClassGroup; ++b) {
+      const long long k = (i0 + g + b) * l + c;
+      if (k >= k0 && k < k_end) y[k - k0] = acc[b];
+    }
+  }
+}
+
+template <int kStride>
+cudaError_t launch_class(const int16_t* x, long long n, const float* wc, const int* s_c, int l,
+                         int taps, long long m, int seg, long long k0, long long out_len, float* y,
+                         cudaStream_t stream) {
+  auto kern = class_kernel<kStride>;
+  const size_t smem = class_smem(kStride);
+  cudaError_t e;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const long long i_first = k0 / l;
+  const long long blocks = (k0 + out_len - 1) / l + 1 - i_first;
+  const dim3 grid((unsigned)((blocks + kClassBlocks - 1) / kClassBlocks),
+                  (unsigned)((l + kClassThreads - 1) / kClassThreads));
+  kern<<<grid, kClassThreads, smem, stream>>>(x, n, wc, s_c, l, taps, m, seg, i_first, k0, out_len, y);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The largest dynamic shared memory a block of the current device may opt
@@ -330,4 +456,23 @@ extern "C" int polyphase_resample_block(const void* x, long long n, const void* 
   if (G == 4) return (int)launch_block<4>(xs, n, ws, lv, R, l, m, k0, out_len, out, st);
   if (G == 8) return (int)launch_block<8>(xs, n, ws, lv, R, l, m, k0, out_len, out, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The class-major variant: int16 x, the tap table wc[T][l] of
+// ops/resample.py:k1_class_table and its segment length seg.
+extern "C" int polyphase_resample_class(const void* x, long long n, const void* wc,
+                                        const void* s_c, int l, int taps, long long m, int seg,
+                                        long long k0, long long out_len, void* y, void* stream) {
+  if (out_len <= 0) return 0;
+  if (l < 1 || taps < 1 || seg < taps) return (int)cudaErrorInvalidValue;
+  const int16_t* xs = static_cast<const int16_t*>(x);
+  const float* w = static_cast<const float*>(wc);
+  const int* sc = static_cast<const int*>(s_c);
+  float* out = static_cast<float*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K1_LAUNCH(S) \
+  if (seg <= S) return (int)launch_class<S>(xs, n, w, sc, l, taps, m, seg, k0, out_len, out, st);
+  K1_CLASS_STRIDES(K1_LAUNCH)
+#undef K1_LAUNCH
+  return (int)cudaErrorInvalidValue;  // seg past the largest stride
 }

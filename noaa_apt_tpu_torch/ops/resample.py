@@ -12,12 +12,14 @@ with ``x`` read as 0 past its end (the reference's out-of-range skip).
 
 The JAX package picks among four TPU/CPU mappings (conv, block matmul,
 packed matmul, gather); the port has one kernel, K1 (``csrc/resample.cu``),
-in two variants that :func:`_k1_variant` picks by shape: "block" (a
+in three variants that :func:`_k1_variant` picks by shape: "block" (a
 thread owns the ``l`` outputs of one block, over the tap table of
-:func:`k1_block_table`) for ``l <= 32`` with int16 input, and "phase" (a
-thread per output) for every other shape.  Both sum each output's taps
-in one fixed order, so chunked evaluation is bit-stable in every regime,
-and both are bit-equal to the plain twin,
+:func:`k1_block_table`) for ``l <= 32`` with int16 input, "class" (a
+thread owns one output class ``c`` and walks blocks, over the
+class-major tap table of :func:`k1_class_table`) for ``l > 32`` with
+int16 input, and "phase" (a thread per output) for float32 input.  All
+sum each output's taps in one fixed order, so chunked evaluation is
+bit-stable in every regime, and all are bit-equal to the plain twin,
 :func:`polyphase_resample_plain`, which sums the same products in the
 same order.
 """
@@ -159,14 +161,46 @@ def k1_block_smem(l: int, m: int, r_len: int, g: int) -> int:
     return 16 * r_len * g + (tile + 15) // 16 * 16 + r_len
 
 
+# -- the class-major variant's tables -----------------------------------------
+K1_CLASS_TILE = 128  # output classes a class-major CTA owns (kClassThreads)
+K1_CLASS_BLOCKS = 32  # blocks of l outputs a class-major CTA owns (kClassBlocks)
+# Row strides of the staged segments (K1_CLASS_STRIDES in csrc/resample.cu).
+K1_CLASS_STRIDES = (32, 64, 96, 128, 160, 192, 256, 320, 384, 448, 512, 576, 640, 768, 1024, 1280, 1816)
+
+
+def k1_class_table(bank, p_c, s_c) -> tuple[np.ndarray, int]:
+    """``(wc f32[T, l], seg)`` of the class-major variant.
+
+    ``wc[t, c] = bank[p_c[c], t]``: lane ``c`` of a warp reads column
+    ``c``, so a warp's tap load is one coalesced row.  ``seg`` is the x
+    segment a CTA stages per block: the widest ``s_c[last] - s_c[first]``
+    over the tiles of ``K1_CLASS_TILE`` classes, plus ``T``."""
+    bank = np.asarray(bank, np.float32)
+    p_c, s_c = np.asarray(p_c, np.int64), np.asarray(s_c, np.int64)
+    l, taps = bank.shape
+    first = np.arange(0, l, K1_CLASS_TILE)
+    last = np.minimum(first + K1_CLASS_TILE - 1, l - 1)
+    return np.ascontiguousarray(bank[p_c].T), int((s_c[last] - s_c[first]).max()) + taps
+
+
+def k1_class_smem(seg: int) -> int:
+    """Dynamic shared memory of one class-major CTA, in bytes: one f32 row
+    per block, at the least stride of ``K1_CLASS_STRIDES`` that holds
+    ``seg`` (``seg`` itself past the largest, which no CTA fits).
+    Mirrors ``class_smem`` in ``csrc/resample.cu``."""
+    return 4 * K1_CLASS_BLOCKS * next((s for s in K1_CLASS_STRIDES if s >= seg), seg)
+
+
 def _k1_variant(l: int, dtype: torch.dtype, smem_bytes: int, optin: int) -> str:
-    """K1's variant for a shape: ``"block"`` for ``l <= 32`` with int16
-    input whose block-major CTA fits ``optin`` bytes of shared memory,
-    else ``"phase"``.  (Float32 input may hold inf or NaN, where the
-    block variant's products by a zero tap would not vanish.)"""
-    if l <= K1_BLOCK_MAX_L and dtype == torch.int16 and smem_bytes <= optin:
-        return "block"
-    return "phase"
+    """K1's variant for a shape: with int16 input, ``"block"`` for
+    ``l <= 32`` and ``"class"`` for ``l > 32``, where that variant's CTA
+    (``smem_bytes``) fits ``optin`` bytes of shared memory; else
+    ``"phase"``.  (Float32 input may hold inf or NaN, where the block
+    variant's products by a zero tap would not vanish; it stays on
+    "phase".)"""
+    if dtype != torch.int16 or smem_bytes > optin:
+        return "phase"
+    return "block" if l <= K1_BLOCK_MAX_L else "class"
 
 
 @dataclass(frozen=True)
@@ -177,26 +211,43 @@ class _BlockTable:
     r_len: int
 
 
-# id(bank) -> (weak refs to bank, p_c, s_c; their versions; the table)
-_block_tables: dict[int, tuple] = {}
+@dataclass(frozen=True)
+class _ClassTable:
+    wc: torch.Tensor  # f32[T, l] on the bank's device
+    seg: int
 
 
-def _block_table(bank: torch.Tensor, p_c: torch.Tensor, s_c: torch.Tensor) -> _BlockTable:
-    """The block table of ``(bank, p_c, s_c)`` on their device, built on
-    the host once and kept while ``bank`` lives and none of the three is
-    replaced or written (``_version``): later calls need no host sync."""
-    key = id(bank)
+def _build_block(bank: np.ndarray, p_c: np.ndarray, s_c: np.ndarray, dev) -> _BlockTable:
+    w, live, g = k1_block_table(bank, p_c, s_c)
+    return _BlockTable(torch.from_numpy(w).to(dev), torch.from_numpy(live).to(dev), g, w.shape[0])
+
+
+def _build_class(bank: np.ndarray, p_c: np.ndarray, s_c: np.ndarray, dev) -> _ClassTable:
+    wc, seg = k1_class_table(bank, p_c, s_c)
+    return _ClassTable(torch.from_numpy(wc).to(dev), seg)
+
+
+_BUILDERS = {"block": _build_block, "class": _build_class}
+
+# (variant, id(bank)) -> (weak refs to bank, p_c, s_c; their versions; the table)
+_tables: dict[tuple[str, int], tuple] = {}
+
+
+def _table(variant: str, bank: torch.Tensor, p_c: torch.Tensor, s_c: torch.Tensor):
+    """The ``variant`` table of ``(bank, p_c, s_c)`` on their device, built
+    on the host once and kept while ``bank`` lives and none of the three
+    is replaced or written (``_version``): later calls need no host
+    sync."""
+    key = (variant, id(bank))
     versions = (bank._version, p_c._version, s_c._version)
-    hit = _block_tables.get(key)
+    hit = _tables.get(key)
     if (hit is not None and hit[1] == versions
             and all(r() is t for r, t in zip(hit[0], (bank, p_c, s_c)))):
         return hit[2]
-    w, live, g = k1_block_table(bank.cpu().numpy(), p_c.cpu().numpy(), s_c.cpu().numpy())
-    tab = _BlockTable(torch.from_numpy(w).to(bank.device), torch.from_numpy(live).to(bank.device),
-                      g, w.shape[0])
-    refs = (weakref.ref(bank, lambda _, k=key: _block_tables.pop(k, None)),
+    tab = _BUILDERS[variant](bank.cpu().numpy(), p_c.cpu().numpy(), s_c.cpu().numpy(), bank.device)
+    refs = (weakref.ref(bank, lambda _, k=key: _tables.pop(k, None)),
             weakref.ref(p_c), weakref.ref(s_c))
-    _block_tables[key] = (refs, versions, tab)
+    _tables[key] = (refs, versions, tab)
     return tab
 
 
@@ -212,6 +263,7 @@ def _kernel(name: str):
         f.argtypes = {
             "polyphase_resample": [p, i, ll, p, p, p, i, i, ll, ll, ll, p, p],
             "polyphase_resample_block": [p, ll, p, p, i, i, i, ll, ll, ll, p, p],
+            "polyphase_resample_class": [p, ll, p, p, i, i, ll, i, ll, ll, p, p],
             "resample_smem_optin": [ctypes.POINTER(ctypes.c_int)],
         }[name]
         f.restype = ctypes.c_int
@@ -243,8 +295,14 @@ def polyphase_resample(x: torch.Tensor, bank: torch.Tensor, p_c: torch.Tensor,
         polyphase_resample.last_variant = "plain"
         return polyphase_resample_plain(x, bank, p_c, s_c, m, out_len, k0)
     l = bank.shape[0]
-    tab = _block_table(bank, p_c, s_c) if l <= K1_BLOCK_MAX_L else None
-    smem = k1_block_smem(l, m, tab.r_len, tab.g) if tab is not None else 0
+    tab, smem = None, 0
+    if x.dtype == torch.int16:
+        if l <= K1_BLOCK_MAX_L:
+            tab = _table("block", bank, p_c, s_c)
+            smem = k1_block_smem(l, m, tab.r_len, tab.g)
+        else:
+            tab = _table("class", bank, p_c, s_c)
+            smem = k1_class_smem(tab.seg)
     variant = _k1_variant(l, x.dtype, smem, _smem_optin(x.device))
     x, bank, p_c, s_c = (t.contiguous() for t in (x, bank, p_c, s_c))
     y = torch.empty(out_len, dtype=torch.float32, device=x.device)
@@ -256,6 +314,10 @@ def polyphase_resample(x: torch.Tensor, bank: torch.Tensor, p_c: torch.Tensor,
             rc = _kernel("polyphase_resample_block")(
                 x.data_ptr(), x.shape[0], tab.w.data_ptr(), tab.live.data_ptr(), tab.g, tab.r_len,
                 l, m, k0, out_len, y.data_ptr(), stream)
+        elif variant == "class":
+            rc = _kernel("polyphase_resample_class")(
+                x.data_ptr(), x.shape[0], tab.wc.data_ptr(), s_c.data_ptr(), l, bank.shape[1], m,
+                tab.seg, k0, out_len, y.data_ptr(), stream)
         else:
             rc = _kernel("polyphase_resample")(
                 x.data_ptr(), int(x.dtype == torch.int16), x.shape[0], bank.data_ptr(),

@@ -24,12 +24,20 @@ class Contrast:
     percent: float = 0.98
 
     @staticmethod
+    def telemetry() -> "Contrast":
+        return Contrast(ContrastKind.TELEMETRY)
+
+    @staticmethod
     def from_percent(p: float) -> "Contrast":
         return Contrast(ContrastKind.PERCENT, p)
 
     @staticmethod
     def minmax() -> "Contrast":
         return Contrast(ContrastKind.MINMAX)
+
+    @staticmethod
+    def histogram() -> "Contrast":
+        return Contrast(ContrastKind.HISTOGRAM)
 
 
 class Rotate(enum.Enum):

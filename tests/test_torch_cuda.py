@@ -38,14 +38,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
-K1_CASES = [("standard", 11025, "phase"), ("standard", 48000, "block"), ("fast", 48000, "block"),
+# (profile, rate, variant): "phase" cases feed float32 input, the others int16.
+K1_CASES = [("standard", 11025, "class"), ("standard", 48000, "block"), ("fast", 48000, "block"),
             ("slow", 48000, "block"), ("slow", 192000, "block"), ("slow", 8000, "block"),
-            ("fast", 8000, "phase"), ("slow", 11011, "phase")]
+            ("fast", 8000, "class"), ("fast", 11025, "class"), ("slow", 11025, "class"),
+            ("standard", 22050, "class"), ("slow", 44100, "class"), ("slow", 11011, "class"),
+            ("slow", 11011, "phase")]
 
 
-def _k1_inputs(profile_name: str, rate_hz: int, device):
+def _k1_inputs(profile_name: str, rate_hz: int, device, variant: str = "block"):
     t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
     x = torch.from_numpy(_pcm(rate_hz)).to(device)
+    if variant == "phase":
+        x = x.to(torch.float32)
     args = [torch.from_numpy(a).to(device) for a in (t.bank, t.p_c, t.s_c)]
     return t, x, args
 
@@ -53,11 +58,12 @@ def _k1_inputs(profile_name: str, rate_hz: int, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("profile_name,rate_hz,variant", K1_CASES)
 def test_cuda_resample_kernel_bit_equal(cuda_device, profile_name, rate_hz, variant):
-    """Both K1 variants against the plain twin.  slow/192000 Hz has
+    """Every K1 variant against the plain twin.  slow/192000 Hz has
     T = 857 (126 KB of shared memory per block-major CTA); slow/11011 Hz
-    has l = 1600 and a 312 KB bank, past a block's shared memory: the
-    phase variant then reads the bank from global memory."""
-    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device)
+    has l = 1600 and a 320 KB bank: the class variant reads its table
+    from global memory, and with float32 input the phase variant reads
+    the bank from global memory, past a block's shared memory."""
+    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, variant)
     n_out = t.work_len(x.shape[0])
     got = rs.polyphase_resample(x, *args, t.m, n_out)
     assert rs.polyphase_resample.last_variant == variant
@@ -68,8 +74,8 @@ def test_cuda_resample_kernel_bit_equal(cuda_device, profile_name, rate_hz, vari
 @pytest.mark.parametrize("profile_name,rate_hz,variant", K1_CASES[:4])
 def test_cuda_resample_kernel_ragged_tail(cuda_device, profile_name, rate_hz, variant):
     """The reference's full output count, whose last windows pass n (x
-    reads as 0 there), and a length off the 256-block CTA."""
-    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device)
+    reads as 0 there), and a length off the 256-block (and 32-block) CTA."""
+    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, variant)
     for n_out in (rs.out_len_for(x.shape[0], t.l, t.m, t.offset), 256 * t.l + 5):
         got = rs.polyphase_resample(x, *args, t.m, n_out)
         assert rs.polyphase_resample.last_variant == variant
@@ -80,7 +86,7 @@ def test_cuda_resample_kernel_ragged_tail(cuda_device, profile_name, rate_hz, va
 @pytest.mark.parametrize("profile_name,rate_hz,variant", K1_CASES[:4])
 def test_cuda_resample_kernel_chunked_k0(cuda_device, profile_name, rate_hz, variant):
     """Chunks at k0 off a block and off a 256-block CTA equal one launch."""
-    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device)
+    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, variant)
     n_out = t.work_len(x.shape[0])
     full = rs.polyphase_resample(x, *args, t.m, n_out)
     cuts = [0, 7, n_out // 3 + 3, n_out - t.l, n_out]

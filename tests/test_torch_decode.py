@@ -25,6 +25,7 @@ from noaa_apt_tpu.graph import decode as jdecode
 from noaa_apt_tpu.graph.process import finish_image as j_finish_image
 from noaa_apt_tpu.io import wav as jwav
 from noaa_apt_tpu.synth import synth_recording
+from noaa_apt_tpu.types import Contrast as JContrast
 from noaa_apt_tpu.types import ContrastKind as JContrastKind
 from noaa_apt_tpu.types import Rotate as JRotate
 
@@ -127,6 +128,24 @@ def test_no_sync_path():
     assert res.image_np()[0, 0] == 0.0
 
 
+@pytest.mark.parametrize("profile_name,rate", [("standard", 11025), ("slow", 11025), ("standard", 48000)])
+def test_no_sync_image_matches_jax(profile_name, rate):
+    """The no-sync image (rows cut at multiples of the row length) against
+    the JAX package's on the same seeded signal: the floats within
+    1e-5 of the image's scale, the percent u8 renders within +-1 on 0.1%."""
+    signal, _ = synth_recording(n_rows=16, sample_rate=rate, seed=0)
+    dec = Decoder(PROFILES[profile_name], device="cpu")
+    jdec = jdecode.Decoder(JPROFILES[profile_name])
+    res = dec.decode(signal, Rate(rate), sync=False)
+    jres = jdec.decode(signal, JRate(rate), sync=False)
+    got, want = res.image_np(), jres.image_np()
+    assert got.shape == want.shape and res.n_rows == jres.n_rows > 0
+    scale = float(np.abs(want).max())
+    assert scale > 0 and float(np.abs(got - want).max()) <= 1e-5 * scale
+    _u8_close(dec.render_u8(res, "percent"), jdec.render_u8(jres, "percent"),
+              f"no-sync {rate}/{profile_name} vs JAX")
+
+
 def test_tables_override_from_jax_arrays():
     """``Decoder(tables=...)`` runs on the JAX package's own arrays and
     decodes identically to the port's designed tables; a table for
@@ -212,3 +231,37 @@ def test_cli_rotate_and_minmax(tmp_path):
     np.testing.assert_array_equal(a, np.asarray(Image.open(tmp_path / "b.png")))
     assert report["rows"] == a.shape[0] and set(report["stage_ms"]) >= {"resample", "select"}
     assert cli.main([str(tmp_path / "missing.wav"), "--device", "cpu", "-q"]) == 1
+
+
+# The reference's tables of -c and -R (noaa_apt_tpu/cli.py:201-220).
+REF_CONTRASTS = {"98_percent": JContrast.from_percent(0.98), "telemetry": JContrast.telemetry(),
+                 "disable": JContrast.minmax(), "histogram": JContrast.histogram()}
+REF_ROTATES = {"auto": JRotate.ORBIT, "yes": JRotate.YES, "no": JRotate.NO}
+
+
+@pytest.mark.parametrize("option,name", [("-c", n) for n in (*REF_CONTRASTS, "percent", "minmax")]
+                         + [("-R", n) for n in REF_ROTATES])
+def test_cli_takes_reference_spellings(tmp_path, caplog, option, name):
+    """Each spelling of the reference's ``-c`` and ``-R`` maps to the
+    reference's value (``percent`` and ``minmax`` are the port's aliases of
+    ``98_percent`` and ``disable``); a value not ported yet exits 1 with
+    "not ported yet", the others decode."""
+    from noaa_apt_tpu_torch import cli
+
+    if option == "-c":
+        got = cli.CONTRASTS[name]
+        want = REF_CONTRASTS[{"percent": "98_percent", "minmax": "disable"}.get(name, name)]
+        assert (got.kind.value, got.percent) == (want.kind.value, want.percent)
+        ported = got.kind.value in ("percent", "minmax")
+    else:
+        assert cli.ROTATES[name].value == REF_ROTATES[name].value
+        ported = name != "auto"
+    signal, _ = synth_recording(n_rows=12, sample_rate=11025, seed=5)
+    wav_path, png_path = tmp_path / "pass.wav", tmp_path / "out.png"
+    wav.write_wav(wav_path, signal, wav.WavSpec(1, 11025, 16, "int"))
+    rc = cli.main([str(wav_path), "-o", str(png_path), "--device", "cpu", "-q", option, name])
+    if ported:
+        assert rc == 0 and np.asarray(Image.open(png_path)).shape[1] == 2080
+    else:
+        assert rc == 1 and not png_path.exists()
+        assert f"{option} {name} is not ported yet" in caplog.text

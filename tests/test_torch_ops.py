@@ -8,6 +8,9 @@ for CPU tensors.  ``tests/test_torch_cuda.py`` holds each kernel
 bit-equal to its twin on the card.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -304,6 +307,96 @@ def test_block_order_bit_equal_plain(rate_hz, profile_name, cut):
     assert torch.equal(got, want)
 
 
+# K1's class-major variant: l > 32, int16 input.
+CLASS_CASES = [(11025, "standard"), (11025, "fast"), (11025, "slow"), (22050, "standard"),
+               (44100, "standard"), (44100, "slow"), (8000, "standard"), (8000, "fast"),
+               (11011, "slow")]
+
+
+def _emulate_class_kernel(x, wc, s_c, seg, l, m, k0, out_len):
+    """``class_kernel`` of ``csrc/resample.cu`` in its own tiling and
+    order: per tile of 128 classes, each block ``i``'s segment
+    ``x[i*m + s_c[c0] + q]`` (q < seg, 0 at or past n) is staged, and
+    class ``c`` sums ``wc[t, c] * seg[off + t]`` over ascending t from +0
+    (``off = s_c[c] - s_c[c0]``), one op per step; outputs are kept for
+    k in [k0, k0 + out_len) only.  Blocks run in whole CTAs of 32."""
+    n, taps = x.shape[0], wc.shape[0]
+    i_first, i_end = k0 // l, (k0 + out_len - 1) // l + 1
+    i = torch.arange(i_first, i_first + -(-(i_end - i_first) // 32) * 32, dtype=torch.int64)
+    xp = torch.cat([x.to(torch.float32), torch.zeros(1)])
+    wct = torch.from_numpy(wc)
+    y = torch.full((out_len,), float("nan"))
+    for c0 in range(0, l, rs.K1_CLASS_TILE):
+        cs = torch.arange(c0, min(c0 + rs.K1_CLASS_TILE, l))
+        staged = xp[torch.clamp(i[:, None] * m + int(s_c[c0]) + torch.arange(seg), max=n)]
+        off = torch.from_numpy(s_c[c0 : c0 + cs.shape[0]].astype(np.int64) - int(s_c[c0]))
+        assert int(off.max()) + taps <= seg
+        acc = torch.zeros((i.shape[0], cs.shape[0]), dtype=torch.float32)
+        for t in range(taps):
+            acc = acc + wct[t, cs] * staged[:, off + t]
+        k = i[:, None] * l + cs
+        keep = (k >= k0) & (k < k0 + out_len)
+        y[k[keep] - k0] = acc[keep]
+    return y
+
+
+@pytest.mark.parametrize("rate_hz,profile_name", CLASS_CASES)
+@pytest.mark.parametrize("cut", ["whole", "k0_short", "tail"])
+def test_class_order_bit_equal_plain(rate_hz, profile_name, cut):
+    """The class-major variant's tiling and summation order, over its own
+    tap table and segment length, is ``torch.equal`` to the plain twin:
+    whole work length; ``k0 = 7`` cut one block short of the end; and the
+    reference's full output count, whose last windows pass n."""
+    t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
+    assert t.l > 32
+    x = _full_range_pcm(rate_hz, seed=rate_hz + t.l)
+    n = x.shape[0]
+    wc, seg = rs.k1_class_table(t.bank, t.p_c, t.s_c)
+    k0, out_len = 0, t.work_len(n)
+    if cut == "k0_short":
+        k0, out_len = 7, out_len - t.l - 7
+    elif cut == "tail":
+        out_len = rs.out_len_for(n, t.l, t.m, t.offset)
+        k = out_len - 1
+        assert int(t.s_c[k % t.l]) + k // t.l * t.m + t.bank.shape[1] > n  # the last window passes n
+    args = (torch.from_numpy(t.bank), torch.from_numpy(t.p_c), torch.from_numpy(t.s_c), t.m)
+    want = rs.polyphase_resample_plain(x, *args, out_len, k0)
+    got = _emulate_class_kernel(x, wc, t.s_c, seg, t.l, t.m, k0, out_len)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rate_hz,profile_name", [(11025, "slow"), (44100, "standard"), (8000, "fast")])
+def test_class_table_layout(rate_hz, profile_name):
+    """wc holds class c's taps in column c; seg is the widest tile's
+    s_c span plus T, so every class's window fits its tile's segment."""
+    t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
+    wc, seg = rs.k1_class_table(t.bank, t.p_c, t.s_c)
+    taps = t.bank.shape[1]
+    assert wc.shape == (taps, t.l) and wc.flags.c_contiguous
+    for c in range(t.l):
+        _assert_bits_equal(wc[:, c], t.bank[t.p_c[c]])
+    spans = []
+    for c0 in range(0, t.l, 128):
+        tile = t.s_c[c0 : c0 + 128].astype(np.int64)
+        assert (tile - tile[0]).max() + taps <= seg
+        spans.append(int(tile.max() - tile.min()))
+    assert seg == max(spans) + taps
+    stride = min(s for s in rs.K1_CLASS_STRIDES if s >= seg)
+    assert rs.k1_class_smem(seg) == 4 * 32 * stride
+
+
+def test_class_strides_mirror_cuda_source():
+    """The wrapper's stride list is the kernel's (``K1_CLASS_STRIDES`` in
+    ``csrc/resample.cu``), the last stride fills an H100's opt-in shared
+    memory, and a segment past it needs more than that."""
+    src = (Path(rs.__file__).resolve().parent.parent / "csrc" / "resample.cu").read_text()
+    macro = src[src.index("#define K1_CLASS_STRIDES(X)"):].split("\n\n")[0]
+    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", macro)) == rs.K1_CLASS_STRIDES
+    last = rs.K1_CLASS_STRIDES[-1]
+    assert rs.k1_class_smem(last) <= OPTIN < rs.k1_class_smem(last + 1)
+    assert rs.k1_class_smem(118) == 4 * 32 * 128
+
+
 def test_block_table_layout():
     """W holds each class's taps at its window and 0 elsewhere; the live
     mask marks exactly the groups with a nonzero tap."""
@@ -328,20 +421,21 @@ OPTIN = 232_448  # an H100's opt-in shared memory per block
 @pytest.mark.parametrize("rate_hz", [8000, 11025, 22050, 24000, 32000, 44100, 48000, 96000, 192000])
 @pytest.mark.parametrize("profile_name", ["standard", "fast", "slow"])
 def test_k1_variant_by_shape(profile_name, rate_hz):
-    """"block" for every l <= 32 shape with int16 input, within the
-    opt-in shared memory; "phase" for the gather regime (11025, 22050,
-    44100 Hz), for l = 39 or 52, and for float32 input."""
+    """With int16 input, "block" for every l <= 32 shape and "class" for
+    every l > 32 shape (the gather regime at 11025, 22050 and 44100 Hz;
+    l = 39 or 52 at 8000 Hz), each within the opt-in shared memory;
+    "phase" for float32 input and for a budget below the variant's CTA."""
     t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
     if t.l <= 32:
         w, _, g = rs.k1_block_table(t.bank, t.p_c, t.s_c)
-        smem = rs.k1_block_smem(t.l, t.m, w.shape[0], g)
-        assert smem <= OPTIN
-        assert rs._k1_variant(t.l, torch.int16, smem, OPTIN) == "block"
-        assert rs._k1_variant(t.l, torch.float32, smem, OPTIN) == "phase"
-        assert rs._k1_variant(t.l, torch.int16, smem, smem - 1) == "phase"
+        smem, want = rs.k1_block_smem(t.l, t.m, w.shape[0], g), "block"
     else:
         assert t.l in (39, 52) or rate_hz in (11025, 22050, 44100)
-        assert rs._k1_variant(t.l, torch.int16, 0, OPTIN) == "phase"
+        smem, want = rs.k1_class_smem(rs.k1_class_table(t.bank, t.p_c, t.s_c)[1]), "class"
+    assert smem <= OPTIN
+    assert rs._k1_variant(t.l, torch.int16, smem, OPTIN) == want
+    assert rs._k1_variant(t.l, torch.float32, smem, OPTIN) == "phase"
+    assert rs._k1_variant(t.l, torch.int16, smem, smem - 1) == "phase"
 
 
 def test_k1_block_smem_at_48k():
@@ -356,20 +450,29 @@ def test_k1_block_smem_at_48k():
                    ("slow", 48000): 31_603, ("slow", 192000): 126_072}
 
 
+def _table_cache_follows_bank(variant: str, rate_hz: int, first_tap) -> None:
+    t = DecodeTables.design(PROFILES["standard"], Rate(rate_hz))
+    bank, p_c, s_c = (torch.from_numpy(a.copy()) for a in (t.bank, t.p_c, t.s_c))
+    first = rs._table(variant, bank, p_c, s_c)
+    assert rs._table(variant, bank, p_c, s_c) is first
+    bank[0, 0] += 1.0
+    second = rs._table(variant, bank, p_c, s_c)
+    assert second is not first and float(first_tap(second, t)) == float(bank[int(t.p_c[0]), 0])
+    assert rs._table(variant, bank, p_c, s_c.clone()) is not second
+    key = (variant, id(bank))
+    del bank, first, second
+    assert key not in rs._tables
+
+
 def test_block_table_cache_follows_bank():
     """The wrapper's table is built once per bank tensor and rebuilt when
     the bank, p_c or s_c is written or replaced."""
-    t = DecodeTables.design(PROFILES["standard"], Rate(48000))
-    bank, p_c, s_c = (torch.from_numpy(a.copy()) for a in (t.bank, t.p_c, t.s_c))
-    first = rs._block_table(bank, p_c, s_c)
-    assert rs._block_table(bank, p_c, s_c) is first
-    bank[0, 0] += 1.0
-    second = rs._block_table(bank, p_c, s_c)
-    assert second is not first and float(second.w[int(t.s_c[0]), 0]) == float(bank[int(t.p_c[0]), 0])
-    assert rs._block_table(bank, p_c, s_c.clone()) is not second
-    key = id(bank)
-    del bank, first, second
-    assert key not in rs._block_tables
+    _table_cache_follows_bank("block", 48000, lambda tab, t: tab.w[int(t.s_c[0]), 0])
+
+
+def test_class_table_cache_follows_bank():
+    """The same for the class-major table (11025 Hz, l = 832)."""
+    _table_cache_follows_bank("class", 11025, lambda tab, t: tab.wc[0, 0])
 
 
 def test_cpu_resample_runs_plain():

@@ -12,8 +12,10 @@ A process builds ROOT's kernels, synthesizes the 10-minute 48 kHz pass
 of ``chip_smoke.py``, and runs ROOT's K1, K2 and K3 wrappers on it at
 the main path's shapes (standard profile, B = 1; K3 also on four copies
 of the row with different lengths, B = 4; K1 also on the fast and slow
-profiles and on the 11025 Hz standard pass, with the variant it ran
-where ROOT's wrapper records one).  It holds each result
+profiles at 48 kHz, on the synthesized 11025 Hz pass on all three
+profiles, and on seeded 10-minute int16 passes at 22050 Hz standard and
+44100 Hz standard and slow, with the variant it ran where ROOT's wrapper
+records one).  It holds each result
 ``torch.equal`` to ROOT's plain twin, and times each call with
 ``time_ms`` of this tree's ``chip_smoke.py``, so that every tree is
 timed the same way.  Where ROOT's K3 has a separate summary and walk
@@ -109,6 +111,7 @@ def _run_one(root: Path, path: Path) -> dict:
     cs.assert_equal(torch, "select_peaks.peaks@B=4", pk4, ppk4)
 
     rec = {"root": str(root), "build_s": build_s, "k1_ms": cs.time_ms(torch, k1),
+           "k1_device_ms": cs.device_ms(torch, k1),
            "k1_variant": getattr(polyphase_resample, "last_variant", None),
            "k2_ms": cs.time_ms(torch, k2), "k3_ms": cs.time_ms(torch, k3),
            "k3_b4_ms": cs.time_ms(torch, k3_b4), "k3_peaks": int(kk[0])}
@@ -119,13 +122,18 @@ def _run_one(root: Path, path: Path) -> dict:
         rec["summary_ms"] = cs.time_ms(torch, lambda: sel._summary_launch(rows, nv))
         walk = lambda: sel._walk_launch(rows, nv, summ, spr, md, max_peaks, res)  # noqa: E731
         rec["walk_ms"] = cs.time_ms(torch, walk)
-    # K1 on the other shapes: 48 kHz fast and slow, 11025 Hz standard.
-    cs.synth_wav(path.with_name("pass_11025.wav"), 11025, cs.PASS_ROWS)
-    for key, profile, wav_path in (("48000_fast", FAST, path), ("48000_slow", SLOW, path),
-                                   ("11025_standard", STANDARD, path.with_name("pass_11025.wav"))):
-        sig_k, rate_k = wav.load_device_ready(wav_path)
-        tk = DecodeTables.design(profile, rate_k)
-        xk = torch.from_numpy(np.array(sig_k)).to(dev)
+    # K1 on the other shapes: 48 kHz fast and slow, 11025 Hz on every
+    # profile, 22050 Hz standard, 44100 Hz standard and slow.
+    path11 = path.with_name("pass_11025.wav")
+    cs.synth_wav(path11, 11025, cs.PASS_ROWS)
+    pcm11 = np.array(wav.load_device_ready(path11)[0])
+    for key, profile, rate_k, pcm in (
+            ("48000_fast", FAST, 48000, np.array(signal)), ("48000_slow", SLOW, 48000, np.array(signal)),
+            ("11025_standard", STANDARD, 11025, pcm11), ("11025_fast", FAST, 11025, pcm11),
+            ("11025_slow", SLOW, 11025, pcm11), ("22050_standard", STANDARD, 22050, None),
+            ("44100_standard", STANDARD, 44100, None), ("44100_slow", SLOW, 44100, None)):
+        tk = DecodeTables.design(profile, Rate(rate_k))
+        xk = torch.from_numpy(pcm if pcm is not None else cs.seeded_pcm(rate_k)).to(dev)
         argk = [torch.from_numpy(a).to(dev) for a in (tk.bank, tk.p_c, tk.s_c)]
         wk = tk.work_len(xk.shape[0])
         k1k = lambda: polyphase_resample(xk, *argk, tk.m, wk)  # noqa: E731
@@ -133,6 +141,7 @@ def _run_one(root: Path, path: Path) -> dict:
                         polyphase_resample_plain(xk, *argk, tk.m, wk))
         rec[f"k1_{key}_variant"] = getattr(polyphase_resample, "last_variant", None)
         rec[f"k1_{key}_ms"] = cs.time_ms(torch, k1k)
+        rec[f"k1_{key}_device_ms"] = cs.device_ms(torch, k1k)
     decoder, stages = Decoder(STANDARD), []
     for _ in range(DECODES):
         decoder.decode_render_input(signal, len(signal), rate)
