@@ -14,7 +14,10 @@ Phases, one JSON line each (``{"phase": ...}``):
    22050 Hz standard and 44100 Hz standard and slow, on 11011 Hz slow
    (l = 1600), with float32 input and its tap bank in global memory, and
    in three ``k0`` chunks at 48 kHz standard and 11025 Hz slow, each K1
-   record naming the variant that ran, "block", "class" or "phase"; K3
+   record naming the variant that ran, "block", "class" or "phase"; K1
+   as the l == 1 causal FIR decimated by m (``"path": "l1"``) on seeded
+   10-minute int16 passes at 24960 Hz standard (m = 2), 12480 Hz standard
+   (m = 1) and 41600 Hz slow (m = 2), with the cost of its zero prefix; K3
    also at batch 4 and on tie-heavy
    small-integer rows at batch 1 and 4, with its block summaries and its
    walk's result (k, overflow flag, step count, peaks) held against
@@ -28,9 +31,19 @@ Phases, one JSON line each (``{"phase": ...}``):
 4. ``reference`` — the three golden combos of the JAX package's tests
    decoded on the card: sync positions equal ``tests/golden/*.sync.txt``
    and the u8 image agrees with the port's CPU decode;
+   ``reference_telemetry`` — the same three configurations at 230 rows
+   (a telemetry frame needs 200) with telemetry contrast: the card's
+   wedge levels within 1e-4 of the port's CPU levels, the channel names
+   and sync lists equal, the u8 image within +-1 on 0.1%;
 5. ``main_path`` — the port's CLI (``noaa_apt_tpu_torch.cli.main``) on a
-   synthesized 10-minute 48 kHz pass, then on an 11025 Hz pass, with the
-   kernels' launch counters set to 0 just before and read just after;
+   synthesized 10-minute 48 kHz pass with each contrast and colour
+   choice (``98_percent``, ``-c telemetry``, ``-c histogram``, ``-F``),
+   ``--no-sync``, ``--raw-out`` and then the ``.npy`` re-processed, then
+   on 11025 Hz and 24960 Hz (l == 1) passes, with the kernels' launch
+   counters set to 0 just before each run and read just after (one
+   launch of each kernel per decode; none of K3 without sync, none at
+   all for the ``.npy``); the telemetry run checks the channel names
+   that the synthesizer encodes ("2" and "4");
 6. ``select_stage`` — the decoder's select stage (K3 and its one fetch),
    median of five decodes of the 48 kHz pass, beside K3's own time.
 
@@ -43,6 +56,8 @@ it; it imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import logging
+import os
 import statistics
 import subprocess
 import sys
@@ -56,6 +71,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, dense peak (data sheet)
 # two; a separately issued multiply or add is one op at half that rate.
 FP32_OPS_PER_S = 33.5e12
 PASS_ROWS = 1200  # 10 minutes at 2 rows/s
+TEL_ROWS = 230  # the reference phase's telemetry decodes: a frame needs 200 rows
 REPS = 20
 DECODES = 5  # decodes behind the select-stage median
 
@@ -236,15 +252,16 @@ def stage_case(torch, dev, y, t, label: str):
     return rec, corr
 
 
-def resample_case(torch, dev, x, t, label: str):
-    """K1 on ``x`` with the tables ``t`` at the main path's length,
-    against its plain twin; returns (the record of this case, y).  The
-    record names the variant the wrapper launched."""
+def resample_case(torch, dev, x, t, label: str, work: int | None = None):
+    """K1 on ``x`` with the tables ``t`` at the main path's length (or
+    ``work`` outputs), against its plain twin; returns (the record of
+    this case, y).  The record names the variant the wrapper launched."""
     import torch.nn.functional as F
 
     from noaa_apt_tpu_torch.ops.resample import polyphase_resample, polyphase_resample_plain
 
-    n, work = x.shape[0], t.work_len(x.shape[0])
+    n = x.shape[0]
+    work = t.work_len(n) if work is None else work
     bank, p_c, s_c = (torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c))
     k1 = lambda: polyphase_resample(x, bank, p_c, s_c, t.m, work)  # noqa: E731
     k1p = lambda: polyphase_resample_plain(x, bank, p_c, s_c, t.m, work)  # noqa: E731
@@ -325,6 +342,29 @@ def resample_rates_phase(torch, dev) -> None:
         rec, _ = resample_case(torch, dev, x, DecodeTables.design(profile, Rate(rate)),
                                f"{rate}/{profile.name} seeded")
         emit("kernel", name="polyphase_resample", bit_equal=True, **rec)
+
+
+def l1_phase(torch, dev) -> None:
+    """K1 as the l == 1 path's causal FIR decimated by m, on seeded
+    10-minute int16 passes over ``causal_input`` (K zeros, then x[1:]),
+    with the time of that zero prefix (a ``torch.cat`` on the card)."""
+    from noaa_apt_tpu_torch.core.frequency import Rate
+    from noaa_apt_tpu_torch.core.profiles import SLOW, STANDARD
+    from noaa_apt_tpu_torch.graph.decode import DecodeTables
+    from noaa_apt_tpu_torch.ops.resample import causal_input
+
+    for rate, profile in ((24960, STANDARD), (12480, STANDARD), (41600, SLOW)):
+        t = DecodeTables.design(profile, Rate(rate))
+        if t.l != 1:
+            raise AssertionError(f"{rate}/{profile.name}: l = {t.l}, not the l == 1 path")
+        pcm = torch.from_numpy(seeded_pcm(rate)).to(dev)
+        k = t.bank.shape[1]
+        rec, _ = resample_case(torch, dev, causal_input(pcm, k), t, f"{rate}/{profile.name} seeded, l = 1",
+                               work=t.work_len(pcm.shape[0]))
+        if rec["variant"] != "block":
+            raise AssertionError(f"{rate}/{profile.name}: K1 ran {rec['variant']} at l = 1, not block")
+        rec["prefix_ms"] = time_ms(torch, lambda: causal_input(pcm, k))
+        emit("kernel", name="polyphase_resample", bit_equal=True, path="l1", **rec)
 
 
 def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) -> dict:
@@ -440,9 +480,64 @@ def reference_phase(torch) -> None:
             raise AssertionError(f"{name}: u8 differs from the CPU decode beyond +-1 on 0.1%")
         emit("reference", combo=name, rows=int(gpu.shape[0]), sync_equal_golden=True,
              u8_pixels_differing_from_cpu=int((d > 0).sum()))
+        telemetry_reference(profile, rate, name)
 
 
-def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k1_variant: str) -> dict:
+def telemetry_reference(profile, rate: int, combo: str) -> None:
+    """Telemetry contrast of a golden combo's configuration at ``TEL_ROWS``
+    rows: the card's fused render and wedge levels against the CPU's."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch import synth
+    from noaa_apt_tpu_torch.core.frequency import Rate
+    from noaa_apt_tpu_torch.graph.decode import Decoder
+    from noaa_apt_tpu_torch.post.telemetry import telemetry_from_stats
+
+    sig, _ = synth.synth_recording(n_rows=TEL_ROWS, sample_rate=rate)
+    gdec, cdec = Decoder(profile), Decoder(profile, device="cpu")
+    gpu, sync = gdec.decode_render_input(sig, len(sig), Rate(rate), "telemetry")
+    stage_ms = gdec.last_stage_ms["telemetry"]
+    levels, names = [], []
+    for dec in (gdec, cdec):
+        res = dec.decode(sig, Rate(rate))
+        tel = telemetry_from_stats(*dec.telemetry_stats(res))
+        levels.append((tel.get_wedge_value(9, None), tel.get_wedge_value(8, None)))
+        names.append((tel.get_channel_name("a"), tel.get_channel_name("b")))
+    cpu = cdec.render_u8_levels(res, *levels[1])
+    if sync != res.sync_positions:
+        raise AssertionError(f"{combo} telemetry: sync positions differ from the CPU decode")
+    rel = max(abs(g - c) / abs(c) for g, c in zip(*levels))
+    if rel > 1e-4 or names[0] != names[1]:
+        raise AssertionError(f"{combo} telemetry: card levels {levels[0]} names {names[0]} vs CPU "
+                             f"{levels[1]} {names[1]}")
+    d = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
+    if gpu.shape != cpu.shape or d.max(initial=0) > 1 or (d > 0).mean() > 1e-3:
+        raise AssertionError(f"{combo} telemetry: u8 differs from the CPU render beyond +-1 on 0.1%")
+    emit("reference_telemetry", combo=combo, rows=int(gpu.shape[0]), levels=levels[0],
+         cpu_levels=levels[1], max_rel_level_diff=rel, channels=names[0],
+         u8_pixels_differing_from_cpu=int((d > 0).sum()), telemetry_stage_ms=stage_ms)
+
+
+class _Messages(logging.Handler):
+    """A logging handler that keeps the messages it is given."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages: list[str] = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+ALL_ONCE = {"polyphase_resample": 1, "demod_fir_corr": 1, "select_peaks": 1}
+
+
+def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k1_variant: str | None,
+                    flags: tuple = (), expect: dict = ALL_ONCE, label: str = "98_percent") -> dict:
+    """One CLI run, with the launch counters set to 0 just before and read
+    just after; raises unless each kernel launched ``expect`` times, K1 in
+    ``k1_variant``, and the PNG holds the pass's rows.  Returns the CLI's
+    report with the launches and the telemetry channel names it logged."""
     import numpy as np
 
     from noaa_apt_tpu_torch import cli, ops
@@ -450,32 +545,73 @@ def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k
     from noaa_apt_tpu_torch.ops.resample import polyphase_resample
 
     report: dict = {}
-    ops.reset_launch_counts()
-    rc = cli.main([str(wav_path), "-o", str(out_png), "-q"], report=report)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    names = _Messages()
+    tel_log = logging.getLogger("noaa_apt_tpu_torch.post.telemetry")
+    tel_log.addHandler(names)
+    try:
+        ops.reset_launch_counts()
+        rc = cli.main([str(wav_path), "-o", str(out_png), *flags], report=report)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        tel_log.removeHandler(names)
     if rc != 0:
-        raise AssertionError(f"cli.main returned {rc} at {rate} Hz")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path at {rate} Hz: {missing}")
-    if launches["polyphase_resample"] != 1:
-        raise AssertionError(f"{launches['polyphase_resample']} K1 launches on the {rate} Hz pass, not 1")
-    if polyphase_resample.last_variant != k1_variant:
+        raise AssertionError(f"cli.main returned {rc} at {rate} Hz ({label})")
+    if launches != expect:
+        raise AssertionError(f"launches on the {rate} Hz {label} run: {launches}, expected {expect}")
+    if k1_variant is not None and polyphase_resample.last_variant != k1_variant:
         raise AssertionError(f"K1 ran {polyphase_resample.last_variant} at {rate} Hz, not {k1_variant}")
     rows = report["rows"]
     if abs(rows - PASS_ROWS) > 2:
-        raise AssertionError(f"{rows} rows decoded, synthesized {PASS_ROWS}")
-    gaps = np.diff(np.asarray(report["sync_positions"][1:-1]))
-    if gaps.size == 0 or np.abs(gaps - spr).max() > 1:
-        raise AssertionError(f"interior sync spacing off spr={spr}: {sorted(set(gaps.tolist()))[:8]}")
+        raise AssertionError(f"{rows} rows decoded at {rate} Hz ({label}), synthesized {PASS_ROWS}")
+    spacing = None
+    if report["sync_positions"] is not None:
+        gaps = np.diff(np.asarray(report["sync_positions"][1:-1]))
+        if gaps.size == 0 or np.abs(gaps - spr).max() > 1:
+            raise AssertionError(f"interior sync spacing off spr={spr}: {sorted(set(gaps.tolist()))[:8]}")
+        spacing = sorted(set(gaps.tolist()))
     width, height = png.png_size(out_png)
     if width != 2080 or height != rows:
         raise AssertionError(f"PNG is {width}x{height}, expected 2080x{rows}")
-    emit("main_path", rate=rate, rows=rows, launches=launches, k1_variant=polyphase_resample.last_variant,
+    channels = [m for m in names.messages if m.startswith("Channel A:")]
+    emit("main_path", rate=rate, run=label, flags=list(flags), rows=rows, launches=launches,
+         k1_variant=polyphase_resample.last_variant if k1_variant else None,
          wall_s=report["wall_s"], load_s=report["load_s"], decode_s=report["decode_s"],
          finish_s=report["finish_s"], save_s=report["save_s"], stage_ms=report["stage_ms"],
-         sync_spacing=sorted(set(gaps.tolist())))
+         telemetry_ms=report["telemetry_ms"], channels=channels, sync_spacing=spacing)
+    return {**report, "launches": launches, "channels": channels}
+
+
+def main_path_runs(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr: int) -> dict:
+    """Every contrast and colour choice of the CLI on the 48 kHz pass, the
+    unfused paths (--no-sync, --raw-out, the .npy re-process), then the
+    11025 Hz and 24960 Hz passes; returns the default run's launches."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch.io import png
+
+    def run(wav, name, rate, variant, *flags, **kw):
+        return main_path_phase(torch, wav, tmp / f"{name}.png", rate, spr, variant, ("-q", *flags),
+                               label=name, **kw)
+
+    launches = run(wav48, "98_percent", 48000, "block")["launches"]
+    tel = main_path_phase(torch, wav48, tmp / "telemetry.png", 48000, spr, "block",
+                          ("-c", "telemetry"), label="telemetry")
+    if tel["channels"] != ["Channel A: 2, Channel B: 4"] or tel["telemetry_ms"] is None:
+        raise AssertionError(f"telemetry run: channels {tel['channels']}, stage {tel['telemetry_ms']}")
+    run(wav48, "histogram", 48000, "block", "-c", "histogram")
+    run(wav48, "false_color", 48000, "block", "-F")
+    run(wav48, "no_sync", 48000, "block", "--no-sync",
+        expect={"polyphase_resample": 1, "demod_fir_corr": 1, "select_peaks": 0})
+    raw = tmp / "raw.npy"
+    run(wav48, "raw_out", 48000, "block", "--raw-out", str(raw))
+    run(raw, "npy", 48000, None, expect={k: 0 for k in ALL_ONCE})
+    d = np.abs(png.read_png(tmp / "npy.png").astype(np.int16) - png.read_png(tmp / "raw_out.png"))
+    if d.max(initial=0) > 1 or (d > 0).mean() > 1e-3:
+        raise AssertionError("the .npy re-process differs from its --raw-out run beyond +-1 on 0.1%")
+    emit("npy_vs_raw_out", pixels_differing=int((d > 0).sum()))
+    run(wav11, "98_percent", 11025, "class")
+    run(wav25, "98_percent", 24960, "block")
     return launches
 
 
@@ -538,10 +674,11 @@ def main() -> int:
     spr = STANDARD.work_rate * 2080 // 4160
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        wav48, wav11 = tmp / "pass_48000.wav", tmp / "pass_11025.wav"
+        os.environ["XDG_CONFIG_HOME"] = str(tmp / "cfg")  # the CLI's settings file
+        wav48, wav11, wav25 = (tmp / f"pass_{r}.wav" for r in (48000, 11025, 24960))
         t0 = time.perf_counter()
-        synth_wav(wav48, 48000, PASS_ROWS)
-        synth_wav(wav11, 11025, PASS_ROWS)
+        for path, rate in ((wav48, 48000), (wav11, 11025), (wav25, 24960)):
+            synth_wav(path, rate, PASS_ROWS)
         emit("synth", rows=PASS_ROWS, seconds=time.perf_counter() - t0)
 
         rec = kernel_phase(torch, dev, wav48, STANDARD, "48000/standard", batch4=True)
@@ -551,10 +688,10 @@ def main() -> int:
                 stage_profile_phase(torch, dev, path, profile, f"{rate}/{profile.name}",
                                     k0_split=(profile, rate) == (SLOW, 11025))
         resample_rates_phase(torch, dev)
+        l1_phase(torch, dev)
         global_bank_phase(torch, dev)
         reference_phase(torch)
-        launches = main_path_phase(torch, wav48, tmp / "pass_48000.png", 48000, spr, "block")
-        main_path_phase(torch, wav11, tmp / "pass_11025.png", 11025, spr, "class")
+        launches = main_path_runs(torch, tmp, wav48, wav11, wav25, spr)
         select_stage_phase(wav48, rec["select_peaks"]["ms"])
 
     sources = {

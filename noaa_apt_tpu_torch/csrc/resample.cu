@@ -50,6 +50,10 @@
 // 16-byte loads (zero at or past n), the W table and the live mask, and
 // after the r loop writes the sums to a y tile over the span, which it
 // stores contiguously.  No per-output divide; 64-bit only for the span.
+// For l <= 8 (the l == 1 path of the rates that are a multiple of the work
+// rate, and l = 2..8) the wrapper folds b = 16/l blocks into one of b*l
+// outputs at stride b*m (ops/resample.py:k1_block_fold), so that a thread's
+// 16 accumulators hold live outputs; the kernel sees an ordinary l and m.
 //
 // "class": a thread owns one output class c and walks blocks i; its taps
 // bank[p_c[c], .] are the same in every block.  A CTA is 128 consecutive

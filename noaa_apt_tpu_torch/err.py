@@ -1,7 +1,7 @@
 """Error hierarchy.
 
 Behavioral contract: reference ``src/err.rs`` (``Error`` enum), for the
-variants the ported slice raises; everything propagates to one exit
+variants the ported slices raise; everything propagates to one exit
 point in the CLI (``main.rs:147-156`` analog in ``cli.py``).  A subset
 of ``noaa_apt_tpu/err.py``, so that both packages raise the same
 messages.
@@ -24,3 +24,11 @@ class RateOverflowError(AptError):
 
 class WavOpenError(AptError):
     """Reference ``Error::WavOpen`` — malformed WAV container."""
+
+
+class DeserializeError(AptError):
+    """Reference ``Error::Deserialize`` — bad settings file."""
+
+
+class InvalidInputError(AptError):
+    """Reference ``Error::InvalidInput`` — bad palette/user input."""

@@ -12,13 +12,17 @@ skip).
 The hot path of :meth:`Decoder.decode_render_input` on the card:
 
 1. the raw i16 (or f32) recording is uploaded as-is;
-2. kernel K1 (``ops/resample.py``) resamples it to the work rate;
+2. kernel K1 (``ops/resample.py``) resamples it to the work rate (at a
+   rate that is a multiple of the work rate, l == 1, K1 runs the causal
+   FIR decimated by m: ``ops/resample.causal_tables``);
 3. kernel K2 (``ops/stage.py``) demodulates, filters and correlates;
 4. kernel K3 (``ops/select.py``) selects the sync peaks; its one fetch
    (k, the overflow flag and the peak list, a few KB) is the first;
 5. row compaction, the row gather with the work->4160 Hz decimation,
    the percent buckets and the u8 map are plain torch ops; the u8 image
-   is the second fetch.
+   is the second fetch.  Telemetry contrast fetches the per-row band
+   statistics (``[3, rows]`` floats) in between, and runs the wedge math
+   on the host while the f32 image stays on the card.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from ..ops import sync as sy
 from ..ops.resample import polyphase_resample
 from ..ops.select import select_peaks
 from ..ops.stage import demod_fir_corr
+from ..post.telemetry import telemetry_from_stats
 
 log = logging.getLogger(__name__)
 
@@ -51,17 +56,16 @@ _TOO_SHORT = "Got less than 10 rows of samples, audio file is too short"
 
 def _plan_resample_with_filter(input_rate: Rate, output_rate: Rate, filt):
     """``(l, m, coeff)`` of ``dsp::resample_with_filter``
-    (``dsp.rs:62-126``) for an interpolating rate pair."""
+    (``dsp.rs:62-126``): for l == 1 the filter is designed at the input
+    rate (``noaa_apt_tpu/graph/decode.py:82-88``), else at the
+    interpolated rate."""
     if output_rate.get_hz() == 0:
         raise err.InternalError("Can't resample to 0Hz")
     g = math.gcd(input_rate.get_hz(), output_rate.get_hz())
     l = output_rate.get_hz() // g
     m = input_rate.get_hz() // g
-    if l <= 1:
-        raise err.InternalError(
-            f"resampling {input_rate.get_hz()} Hz to {output_rate.get_hz()} Hz is a "
-            "pure decimation (l == 1), which the PyTorch port does not handle yet"
-        )
+    if l == 1:
+        return l, m, filt.design()
     interpolated = input_rate.checked_mul(l)
     if interpolated is None:
         raise err.RateOverflowError(
@@ -80,6 +84,9 @@ class DecodeTables:
 
     - ``bank[l, T]``, ``p_c[l]``, ``s_c[l]``, ``offset``: the ingest
       polyphase filter bank (``noaa_apt_tpu/ops/resample.py:294-311``);
+      at l == 1, the decimation path's tables instead
+      (``ops/resample.causal_tables``: a causal FIR decimated by m over
+      ``causal_input``, ``offset`` unused);
     - ``taps[k]``: the post-demod lowpass, ``template[g]``: the +-1 sync
       frame (``Decoder._chain_params``, ``graph/decode.py:533-545``);
     - ``cosphi2``, ``sinphi``: the demod constants (``ops/demod.py:29-34``).
@@ -108,7 +115,10 @@ class DecodeTables:
             delta_w=Freq.hz(profile.resample_delta_freq, input_rate),
         )
         l, m, coeff = _plan_resample_with_filter(input_rate, work, filt)
-        p_c, s_c, bank, _, offset = rs.phase_tables(rs.resample_plan(0, l, m, coeff))
+        if l == 1:
+            (p_c, s_c, bank), offset = rs.causal_tables(coeff), 0
+        else:
+            p_c, s_c, bank, _, offset = rs.phase_tables(rs.resample_plan(0, l, m, coeff))
         carrier = Freq.hz(float(CARRIER_FREQ), work)
         cutout = Freq.from_pi_rad(np.float32(FINAL_RATE) / np.float32(work.get_hz()))
         taps = Lowpass(cutout=cutout, atten=profile.demodulation_atten, delta_w=cutout / 5.0).design()
@@ -123,7 +133,8 @@ class DecodeTables:
     def from_numpy(cls, *, input_rate: int, work_rate: int, l: int, m: int, offset: int,
                    p_c, s_c, bank, taps, template, cosphi2, sinphi) -> "DecodeTables":
         """Tables from numpy arrays, e.g. the JAX package's own
-        (``rs._phase_tables``, ``Decoder._chain_params``,
+        (``rs._phase_tables``, or ``ops/resample.causal_tables`` of its
+        l == 1 ``coeff``; ``Decoder._chain_params``,
         ``dm.demod_constants``), so a test can run both packages on
         identical taps."""
         arrays = {
@@ -140,6 +151,8 @@ class DecodeTables:
         # Kernel K1 indexes the bank by p_c and the input by s_c unchecked.
         if (arrays["p_c"] < 0).any() or (arrays["p_c"] >= l).any() or (arrays["s_c"] < 0).any():
             raise ValueError(f"p_c must lie in [0, {l}) and s_c must be >= 0")
+        if l == 1 and arrays["s_c"][0] != 0:
+            raise ValueError("l = 1 (decimation) tables need s_c = [0]")
         return cls(
             input_rate=int(input_rate), work_rate=int(work_rate), l=int(l), m=int(m),
             offset=int(offset), cosphi2=np.float32(cosphi2), sinphi=np.float32(sinphi), **arrays,
@@ -151,6 +164,8 @@ class DecodeTables:
 
     def work_len(self, n_true: int) -> int:
         """True work-rate length of an ``n_true``-sample recording."""
+        if self.l == 1:
+            return n_true // self.m  # decimate (dsp.rs:294-307)
         return rs.out_len_for(n_true, self.l, self.m, self.offset)
 
 
@@ -250,6 +265,27 @@ def _percent_buckets(img: torch.Tensor, mn, rng, pct: float):
     return low_b, high_b
 
 
+def _telemetry_stats(img: torch.Tensor):
+    """Per-row telemetry band means and pooled variance on the device
+    (``telemetry.rs:147-170``): columns 994:1038 and 2034:2078, the
+    counterpart of ``Decoder._telemetry_stats_body``
+    (``noaa_apt_tpu/graph/decode.py:868-880``) -> ``[3, rows]`` f32."""
+    a = img[:, 994 : 994 + 44]
+    b = img[:, 2034 : 2034 + 44]
+    mean_a = a.mean(dim=1)
+    mean_b = b.mean(dim=1)
+    variance = (((a - mean_a[:, None]) ** 2).sum(dim=1)
+                + ((b - mean_b[:, None]) ** 2).sum(dim=1)) / _f32(88.0, img)
+    return torch.stack([mean_a, mean_b, variance])
+
+
+def _telemetry_levels(ma, mb, var) -> tuple[float, float]:
+    """Host wedge math -> (low, high) contrast levels: wedge 9 / wedge 8
+    averaged over both bands (``noaa_apt.rs:144-147``)."""
+    tel = telemetry_from_stats(ma, mb, var)
+    return tel.get_wedge_value(9, None), tel.get_wedge_value(8, None)
+
+
 def _levels(img: torch.Tensor, kind: str, pct: float):
     """Device contrast levels (0-dim f32 tensors) of the valid rows:
     ``"minmax"`` or the reference's ``"percent"`` scan.  The bucket ->
@@ -261,7 +297,7 @@ def _levels(img: torch.Tensor, kind: str, pct: float):
     if kind == "minmax":
         return mn, mx
     if kind != "percent":
-        raise err.InternalError(f"render does not handle contrast {kind!r} (not ported yet)")
+        raise err.InternalError(f"render_u8 does not handle contrast {kind!r}")
     rng = mx - mn
     low_b, high_b = _percent_buckets(img, mn, rng, pct)
     lut = torch.from_numpy(np.arange(1001, dtype=np.float32) / np.float32(1000.0)).to(img.device)
@@ -338,15 +374,22 @@ class Decoder:
             arr = np.array(arr)  # read-only memmap -> a copy torch may wrap
         return torch.from_numpy(arr).to(self.device)
 
-    def _front(self, signal, n_true: int, input_rate: Rate, clock: _StageClock):
-        """Upload, K1, K2: -> (filt, corr, work_true, device tables)."""
+    def _front(self, signal, n_true: int, input_rate: Rate, clock: _StageClock, context=None):
+        """Upload, K1, K2: -> (filt, corr, work_true, device tables).
+        On the l == 1 path the upload is followed by K1's zero prefix
+        (``ops/resample.causal_input``, stage ``causal_prefix``)."""
         dt = self._device_tables(input_rate)
         work_true = dt.tables.work_len(n_true)
+        if context is not None:
+            context.status(0.1, f"Resampling to {self.work_rate.get_hz()}")
         if work_true < 10 * self.samples_per_work_row:
             raise err.InternalError(_TOO_SHORT)
         x = self._upload(signal, n_true)
         clock.mark("upload")
         t = dt.tables
+        if t.l == 1:
+            x = rs.causal_input(x, t.bank.shape[1])
+            clock.mark("causal_prefix")
         y = polyphase_resample(x, dt.bank, dt.p_c, dt.s_c, t.m, work_true)
         clock.mark("resample")
         filt, corr = demod_fir_corr(y, dt.taps, dt.template, t.cosphi2, dt.inv_sinphi)
@@ -381,7 +424,15 @@ class Decoder:
                             contrast_kind: str = "percent", pct: float = 0.98):
         """Raw recording -> (u8 rows [n_rows, 2080], sync positions), the
         whole chain on the device with two small fetches (the peak list,
-        then the u8 image)."""
+        then the u8 image).
+
+        ``contrast_kind``: "percent", "minmax" or "telemetry".  Telemetry
+        (``PendingRenderTelemetry.get``, ``noaa_apt_tpu/graph/decode.py:428-438``)
+        keeps the f32 image on the device, fetches its band statistics
+        (``[3, rows]`` floats), runs the wedge math on the host and maps
+        the image with the wedge-9/wedge-8 levels; its ``telemetry``
+        stage times the row gather, the statistics, their fetch and the
+        wedge math."""
         clock = _StageClock(self.device)
         filt, corr, work_true, dt = self._front(signal, n_true, input_rate, clock)
         peaks, sync_pos = self._sync(corr, work_true, dt.template.shape[0], clock)
@@ -391,7 +442,11 @@ class Decoder:
         idx = torch.arange(k, device=peaks.device)
         pos = peaks[(idx < k - 1) & (peaks + self.samples_per_work_row < work_true)]
         img = self._image(filt, pos)
-        if img.shape[0] == 0:
+        if contrast_kind == "telemetry":
+            low, high = _telemetry_levels(*_telemetry_stats(img).cpu().numpy())
+            clock.mark("telemetry")
+            u8 = _map_u8(img, _f32(low, img), _f32(high, img))
+        elif img.shape[0] == 0:
             u8 = torch.zeros((0, PX_PER_ROW), dtype=torch.uint8, device=img.device)
         else:
             u8 = _map_u8(img, *_levels(img, contrast_kind, pct))
@@ -401,28 +456,38 @@ class Decoder:
         self.last_stage_ms = clock.ms()
         return out, sync_pos
 
-    def decode(self, signal, input_rate: Rate, sync: bool = True) -> DecodeResult:
+    def decode(self, signal, input_rate: Rate, sync: bool = True, context=None) -> DecodeResult:
         """Decode a recording into raw image rows (``decode.rs:43-162``):
         resample to the work rate with the DC-removal lowpass,
         AM-demodulate, lowpass, sync-align (or truncate), decimate to
-        4160 Hz."""
+        4160 Hz.  ``context`` (``io/context.Context``) gets the
+        reference's status calls."""
         clock = _StageClock(self.device)
         n_true = len(signal)
-        filt, corr, work_true, dt = self._front(signal, n_true, input_rate, clock)
+        filt, corr, work_true, dt = self._front(signal, n_true, input_rate, clock, context)
         spr = self.samples_per_work_row
         if sync:
+            if context is not None:
+                context.status(0.5, "Syncing")
             _, sync_pos = self._sync(corr, work_true, dt.template.shape[0], clock)
             rows_pos = [p for p in sync_pos[:-1] if p + spr < work_true]
         else:
+            if context is not None:
+                context.status(0.5, "Skipping Syncing")
             sync_pos = None
             rows_pos = list(range(0, (work_true // spr) * spr, spr))
+        if context is not None:
+            context.status(0.90, "Resampling to 4160")
         pos = torch.tensor(rows_pos, dtype=torch.int64, device=self.device)
         img = self._image(filt, pos)
         clock.mark("rows")
         self.last_stage_ms = clock.ms()
         return DecodeResult(image=img, n_rows=len(rows_pos), sync_positions=sync_pos)
 
-    def render_u8(self, result: DecodeResult, contrast_kind: str, pct: float = 0.98) -> np.ndarray:
+    # The renders below hold no decoder state: they run on the device
+    # the result's image lies on.
+    @staticmethod
+    def render_u8(result: DecodeResult, contrast_kind: str, pct: float = 0.98) -> np.ndarray:
         """Grayscale u8 rows with device contrast levels ("percent" or
         "minmax"), identical to :meth:`decode_render_input`'s."""
         if result.n_rows == 0:
@@ -430,7 +495,16 @@ class Decoder:
         low, high = _levels(result.image, contrast_kind, pct)
         return _map_u8(result.image, low, high).cpu().numpy()
 
-    def render_u8_levels(self, result: DecodeResult, low: float, high: float) -> np.ndarray:
-        """u8 map with explicit levels."""
+    @staticmethod
+    def telemetry_stats(result: DecodeResult):
+        """Per-row telemetry band statistics of the resident image, in one
+        fetch: ``(mean_a, mean_b, variance)``, f32 numpy arrays of
+        ``n_rows``."""
+        ma, mb, var = _telemetry_stats(result.image).cpu().numpy()
+        return ma, mb, var
+
+    @staticmethod
+    def render_u8_levels(result: DecodeResult, low: float, high: float) -> np.ndarray:
+        """u8 map with explicit levels (e.g. from telemetry wedges)."""
         img = result.image
         return _map_u8(img, _f32(low, img), _f32(high, img)).cpu().numpy()

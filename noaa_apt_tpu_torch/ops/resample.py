@@ -14,7 +14,9 @@ The JAX package picks among four TPU/CPU mappings (conv, block matmul,
 packed matmul, gather); the port has one kernel, K1 (``csrc/resample.cu``),
 in three variants that :func:`_k1_variant` picks by shape: "block" (a
 thread owns the ``l`` outputs of one block, over the tap table of
-:func:`k1_block_table`) for ``l <= 32`` with int16 input, "class" (a
+:func:`k1_block_table`; for ``l <= 8`` the launch folds ``16 // l``
+blocks into one, :func:`k1_block_fold`) for ``l <= 32`` with int16
+input, "class" (a
 thread owns one output class ``c`` and walks blocks, over the
 class-major tap table of :func:`k1_class_table`) for ``l > 32`` with
 int16 input, and "phase" (a thread per output) for float32 input.  All
@@ -82,6 +84,31 @@ def phase_tables(plan: ResamplePlan):
     return p_c, s_c, bank, t_taps, offset
 
 
+def causal_tables(coeff: np.ndarray):
+    """``(p_c, s_c, bank)`` that make K1 the l == 1 path of
+    ``noaa_apt_tpu/graph/decode.py:82-88``: the reference's streaming FIR
+    (``dsp::filter``, ``dsp.rs:386-410``, with its strict ``i > j``
+    guard) decimated by m,
+
+        y[n] = sum_{j < min(K, n*m)} coeff[j] * x[n*m - j],
+
+    is K1 with ``l = 1``, ``p_c = s_c = [0]`` and ``bank[0, t] =
+    coeff[K-1-t]`` over :func:`causal_input` (K zeros, then ``x[1:]``:
+    the guard drops ``x[0]`` and every sample before it).  K1 sums the
+    taps from the oldest sample to the newest (descending j), where the
+    reference sums from the newest: the float results agree to rounding,
+    not bit for bit."""
+    coeff = np.asarray(coeff, np.float32)
+    zero = np.zeros(1, np.int32)
+    return zero, zero.copy(), np.ascontiguousarray(coeff[::-1][None, :])
+
+
+def causal_input(x: torch.Tensor, n_taps: int) -> torch.Tensor:
+    """K1's input for :func:`causal_tables`: ``n_taps`` zeros, then
+    ``x[1:]``, in ``x``'s dtype and on its device."""
+    return torch.cat([torch.zeros(n_taps, dtype=x.dtype, device=x.device), x[1:]])
+
+
 def _check(x, bank, p_c, s_c, m, out_len, k0):
     if x.dim() != 1 or x.dtype not in (torch.int16, torch.float32):
         raise ValueError(f"x must be a 1-D int16 or float32 tensor, got {x.dtype}{tuple(x.shape)}")
@@ -126,10 +153,30 @@ def polyphase_resample_plain(x, bank, p_c, s_c, m: int, out_len: int, k0: int = 
 # -- the block-major variant's tables and dispatch ---------------------------
 K1_CTA_BLOCKS = 256  # blocks of l outputs a block-major CTA owns (kCtaBlocks)
 K1_BLOCK_MAX_L = 32  # G = 8 groups of 4 accumulators a block
+K1_FOLD_LANES = 16  # accumulators a thread holds per block at G = 4
+
+
+def k1_block_fold(p_c, s_c, m: int) -> tuple[np.ndarray, np.ndarray, int]:
+    """``(p_c, s_c, m)`` of the block-major launch.  For ``l <= 8``,
+    ``b = 16 // l`` consecutive blocks of ``l`` outputs form one block of
+    ``b*l``: output ``k = i*b*l + j*l + c`` has its first input at
+    ``s_c[c] + j*m + i*(b*m)``, so the folded classes are ``p_c`` tiled
+    ``b`` times, ``s_c[c] + j*m``, and the stride is ``b*m``.  Each
+    output keeps its taps and their order, so the sums are unchanged;
+    the small l (1 on the l == 1 path) then fills a thread's 16
+    accumulators, where it would leave ``16 - l`` of them dead, and a CTA
+    owns ``b`` times the outputs.  Other l pass through."""
+    p_c, s_c = np.asarray(p_c, np.int64), np.asarray(s_c, np.int64)
+    l = p_c.shape[0]
+    b = K1_FOLD_LANES // l if l <= K1_FOLD_LANES // 2 else 1
+    j = np.arange(b, dtype=np.int64)[:, None]
+    return np.tile(p_c, b), (s_c[None, :] + j * m).reshape(-1), b * m
 
 
 def k1_block_table(bank, p_c, s_c) -> tuple[np.ndarray, np.ndarray, int]:
-    """``(w f32[R, 4G], live u8[R], G)`` of the block-major variant.
+    """``(w f32[R, 4G], live u8[R], G)`` of the block-major variant, for
+    ``l = len(p_c)`` output classes (the bank may have fewer rows: see
+    :func:`k1_block_fold`).
 
     ``w[r, c] = bank[p_c[c], r - s_c[c]]`` inside output class ``c``'s
     window (``s_c[c] <= r < s_c[c] + T``) and 0 outside it, over the
@@ -138,7 +185,7 @@ def k1_block_table(bank, p_c, s_c) -> tuple[np.ndarray, np.ndarray, int]:
     is nonzero.  ``G`` is 4 for ``l <= 16`` and 8 for ``l <= 32``."""
     bank = np.asarray(bank, np.float32)
     p_c, s_c = np.asarray(p_c, np.int64), np.asarray(s_c, np.int64)
-    l, taps = bank.shape
+    l, taps = p_c.shape[0], bank.shape[1]
     if l > K1_BLOCK_MAX_L:
         raise ValueError(f"the block-major variant takes l <= {K1_BLOCK_MAX_L}, got l={l}")
     g = 4 if l <= 16 else 8
@@ -209,6 +256,8 @@ class _BlockTable:
     live: torch.Tensor  # u8[R]
     g: int
     r_len: int
+    l: int  # output classes and input stride of the launch (k1_block_fold)
+    m: int
 
 
 @dataclass(frozen=True)
@@ -217,9 +266,11 @@ class _ClassTable:
     seg: int
 
 
-def _build_block(bank: np.ndarray, p_c: np.ndarray, s_c: np.ndarray, dev) -> _BlockTable:
+def _build_block(bank: np.ndarray, p_c: np.ndarray, s_c: np.ndarray, dev, m: int) -> _BlockTable:
+    p_c, s_c, m = k1_block_fold(p_c, s_c, m)
     w, live, g = k1_block_table(bank, p_c, s_c)
-    return _BlockTable(torch.from_numpy(w).to(dev), torch.from_numpy(live).to(dev), g, w.shape[0])
+    return _BlockTable(torch.from_numpy(w).to(dev), torch.from_numpy(live).to(dev), g, w.shape[0],
+                       p_c.shape[0], m)
 
 
 def _build_class(bank: np.ndarray, p_c: np.ndarray, s_c: np.ndarray, dev) -> _ClassTable:
@@ -229,22 +280,23 @@ def _build_class(bank: np.ndarray, p_c: np.ndarray, s_c: np.ndarray, dev) -> _Cl
 
 _BUILDERS = {"block": _build_block, "class": _build_class}
 
-# (variant, id(bank)) -> (weak refs to bank, p_c, s_c; their versions; the table)
-_tables: dict[tuple[str, int], tuple] = {}
+# (variant, id(bank), *extra) -> (weak refs to bank, p_c, s_c; their versions; the table)
+_tables: dict[tuple, tuple] = {}
 
 
-def _table(variant: str, bank: torch.Tensor, p_c: torch.Tensor, s_c: torch.Tensor):
-    """The ``variant`` table of ``(bank, p_c, s_c)`` on their device, built
-    on the host once and kept while ``bank`` lives and none of the three
-    is replaced or written (``_version``): later calls need no host
+def _table(variant: str, bank: torch.Tensor, p_c: torch.Tensor, s_c: torch.Tensor, *extra):
+    """The ``variant`` table of ``(bank, p_c, s_c)`` on their device
+    (``extra``: the block variant's stride ``m``, which its fold needs),
+    built on the host once and kept while ``bank`` lives and none of the
+    three is replaced or written (``_version``): later calls need no host
     sync."""
-    key = (variant, id(bank))
+    key = (variant, id(bank), *extra)
     versions = (bank._version, p_c._version, s_c._version)
     hit = _tables.get(key)
     if (hit is not None and hit[1] == versions
             and all(r() is t for r, t in zip(hit[0], (bank, p_c, s_c)))):
         return hit[2]
-    tab = _BUILDERS[variant](bank.cpu().numpy(), p_c.cpu().numpy(), s_c.cpu().numpy(), bank.device)
+    tab = _BUILDERS[variant](bank.cpu().numpy(), p_c.cpu().numpy(), s_c.cpu().numpy(), bank.device, *extra)
     refs = (weakref.ref(bank, lambda _, k=key: _tables.pop(k, None)),
             weakref.ref(p_c), weakref.ref(s_c))
     _tables[key] = (refs, versions, tab)
@@ -298,8 +350,8 @@ def polyphase_resample(x: torch.Tensor, bank: torch.Tensor, p_c: torch.Tensor,
     tab, smem = None, 0
     if x.dtype == torch.int16:
         if l <= K1_BLOCK_MAX_L:
-            tab = _table("block", bank, p_c, s_c)
-            smem = k1_block_smem(l, m, tab.r_len, tab.g)
+            tab = _table("block", bank, p_c, s_c, m)
+            smem = k1_block_smem(tab.l, tab.m, tab.r_len, tab.g)
         else:
             tab = _table("class", bank, p_c, s_c)
             smem = k1_class_smem(tab.seg)
@@ -313,7 +365,7 @@ def polyphase_resample(x: torch.Tensor, bank: torch.Tensor, p_c: torch.Tensor,
         if variant == "block":
             rc = _kernel("polyphase_resample_block")(
                 x.data_ptr(), x.shape[0], tab.w.data_ptr(), tab.live.data_ptr(), tab.g, tab.r_len,
-                l, m, k0, out_len, y.data_ptr(), stream)
+                tab.l, tab.m, k0, out_len, y.data_ptr(), stream)
         elif variant == "class":
             rc = _kernel("polyphase_resample_class")(
                 x.data_ptr(), x.shape[0], tab.wc.data_ptr(), s_c.data_ptr(), l, bank.shape[1], m,

@@ -6,7 +6,8 @@ the 1000-bucket histogram level finder) and ``src/noaa_apt.rs:249-259``
 scan semantics (including the ``else if`` that forbids low and high
 landing on the same bucket) are preserved exactly.
 
-A copy of ``noaa_apt_tpu/post/contrast.py``: the host oracle that the
+A copy of ``noaa_apt_tpu/post/contrast.py``: the host path of
+``graph/process.process`` for a flat signal, and the oracle that the
 decoder's device percent levels (``graph/decode.py:_levels``) are held
 against.
 """
@@ -68,6 +69,14 @@ def scan_buckets(
     low = np.float32(np.float32(low_bucket) / np.float32(num_buckets) * total_range + mn)
     high = np.float32(np.float32(high_bucket) / np.float32(num_buckets) * total_range + mn)
     return float(low), float(high)
+
+
+def min_max(signal: np.ndarray) -> tuple[float, float]:
+    """Reference ``Contrast::MinMax`` levels (``noaa_apt.rs:158-164``)."""
+    signal = np.asarray(signal)
+    if signal.size == 0:
+        raise err.InternalError("Can't get minimum of a zero length vector")
+    return float(signal.min()), float(signal.max())
 
 
 def map_signal_u8(signal: np.ndarray, low: float, high: float) -> np.ndarray:

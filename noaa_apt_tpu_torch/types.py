@@ -1,14 +1,15 @@
 """Option types of the ported slice.
 
 Behavioral contract: reference ``src/noaa_apt.rs:25-109`` (a subset of
-``noaa_apt_tpu/types.py``: contrast and rotation; the orbit, colour and
-map settings wait for the slices that port those features).
+``noaa_apt_tpu/types.py``: contrast, rotation and colour; the orbit and
+map settings wait for the slice that ports those features).
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
+from pathlib import Path
 
 
 class ContrastKind(enum.Enum):
@@ -44,3 +45,12 @@ class Rotate(enum.Enum):
     ORBIT = "orbit"
     NO = "no"
     YES = "yes"
+
+
+@dataclass(frozen=True)
+class ColorSettings:
+    palette_filename: Path
+    ch_a_tune_start: float = 0.0
+    ch_a_tune_end: float = 0.0
+    ch_b_tune_start: float = 0.0
+    ch_b_tune_end: float = 0.0

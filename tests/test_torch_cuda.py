@@ -26,9 +26,13 @@ from noaa_apt_tpu_torch.synth import synth_recording
 torch.set_num_threads(1)
 
 
-def _pcm(rate_hz: int) -> np.ndarray:
-    x, _ = synth_recording(n_rows=2, sample_rate=rate_hz, noise_db=15.0, seed=0)
+def _pcm_rows(rate_hz: int, n_rows: int) -> np.ndarray:
+    x, _ = synth_recording(n_rows=n_rows, sample_rate=rate_hz, noise_db=15.0, seed=0)
     return np.round(x / np.abs(x).max() * 30000).astype(np.int16)
+
+
+def _pcm(rate_hz: int) -> np.ndarray:
+    return _pcm_rows(rate_hz, 2)
 
 
 @pytest.fixture
@@ -95,6 +99,65 @@ def test_cuda_resample_kernel_chunked_k0(cuda_device, profile_name, rate_hz, var
         parts.append(rs.polyphase_resample(x, *args, t.m, b - a, k0=a))
         assert rs.polyphase_resample.last_variant == variant
     assert torch.equal(torch.cat(parts), full)
+
+
+# The l == 1 rates: (profile, rate, m).
+L1_CASES = [("standard", 24960, 2), ("standard", 12480, 1), ("slow", 41600, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile_name,rate_hz,m", L1_CASES)
+@pytest.mark.parametrize("variant", ["block", "phase"])
+def test_cuda_resample_l1_bit_equal(cuda_device, profile_name, rate_hz, m, variant):
+    """K1 as the causal FIR decimated by m (l = 1, which the block
+    variant's launch folds to 16 outputs a block), over ``causal_input``:
+    int16 on "block", float32 on "phase", the work length and a length
+    off the CTA."""
+    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, variant)
+    assert (t.l, t.m) == (1, m)
+    xc = rs.causal_input(x, t.bank.shape[1])
+    for n_out in (t.work_len(x.shape[0]), 256 * 2 + 5):
+        got = rs.polyphase_resample(xc, *args, t.m, n_out)
+        assert rs.polyphase_resample.last_variant == variant
+        assert torch.equal(got, rs.polyphase_resample_plain(xc, *args, t.m, n_out)), n_out
+        assert got[0].item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile_name,rate_hz,m", L1_CASES)
+def test_cuda_decode_l1_matches_cpu_decode(cuda_device, profile_name, rate_hz, m):
+    """A decode at an l == 1 rate on the card equals the CPU decode, with
+    one K1 launch ("block" for int16 input)."""
+    signal = _pcm_rows(rate_hz, 14)
+    rs.polyphase_resample.launches = 0
+    gpu = Decoder(PROFILES[profile_name]).decode_render_input(signal, len(signal), Rate(rate_hz))
+    assert rs.polyphase_resample.launches == 1 and rs.polyphase_resample.last_variant == "block"
+    cpu = Decoder(PROFILES[profile_name], device="cpu").decode_render_input(signal, len(signal), Rate(rate_hz))
+    assert gpu[1] == cpu[1]
+    np.testing.assert_array_equal(gpu[0], cpu[0])
+
+
+@pytest.mark.cuda
+def test_cuda_telemetry_render_matches_cpu(cuda_device):
+    """The telemetry render on the card against the CPU: the same sync
+    list, levels within 1e-4 relative (the band means reduce in another
+    order on the card), channel names equal, u8 within +-1 on 0.1%."""
+    from noaa_apt_tpu_torch.post.telemetry import telemetry_from_stats
+
+    signal = _pcm_rows(11025, 230)
+    gdec, cdec = Decoder(PROFILES["standard"]), Decoder(PROFILES["standard"], device="cpu")
+    gpu = gdec.decode_render_input(signal, len(signal), Rate(11025), "telemetry")
+    cpu = cdec.decode_render_input(signal, len(signal), Rate(11025), "telemetry")
+    assert gpu[1] == cpu[1] and "telemetry" in gdec.last_stage_ms
+    d = np.abs(gpu[0].astype(np.int16) - cpu[0].astype(np.int16))
+    assert d.max(initial=0) <= 1 and (d > 0).mean() <= 1e-3
+    tels = [telemetry_from_stats(*dec.telemetry_stats(dec.decode(signal, Rate(11025))))
+            for dec in (gdec, cdec)]
+    for wedge in (8, 9):
+        g, c = (t.get_wedge_value(wedge, None) for t in tels)
+        assert abs(g - c) <= 1e-4 * abs(c)
+    names = [(t.get_channel_name("a"), t.get_channel_name("b")) for t in tels]
+    assert names[0] == names[1]
 
 
 @pytest.mark.cuda

@@ -2,7 +2,9 @@
 
 The three golden combos of ``tests/test_decode_e2e.py`` (24 rows, one
 per CPU resample regime) go through both packages' raw-input fused
-render on the CPU.  Integer decisions (sync positions, hence rows) must
+render on the CPU, and so do the telemetry render (230 rows: a telemetry
+frame needs 200) and the l == 1 rates (24960 and 12480 Hz standard,
+41600 Hz slow).  Integer decisions (sync positions, hence rows) must
 be identical; the u8 image may differ from the JAX package's by +-1 on
 at most 0.1% of pixels (a ``floor(v+0.5)`` knife edge under the few-ulp
 float differences between the two backends).
@@ -37,6 +39,14 @@ from noaa_apt_tpu_torch.graph.decode import Decoder, DecodeTables
 from noaa_apt_tpu_torch.io import wav
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _own_settings_dir(tmp_path, monkeypatch):
+    """The CLI reads (and first writes) the user's settings file."""
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path / "cfg"))
+    monkeypatch.delenv("NOAA_APT_RES_DIR", raising=False)
+
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN_DIR = ROOT / "tests" / "golden"
@@ -187,8 +197,15 @@ def test_guards_raise_the_same_messages():
         assert str(exc.value) == str(jexc.value)
     assert str(pdecode._check_sync_count([0, 1, 2, 3])) == str(jdecode._check_sync_count([0, 1, 2, 3]))
     assert pdecode._check_sync_count([0, 1, 2, 3, 4]) is None
-    with pytest.raises(InternalError, match="l == 1"):
-        dec.decode(short, Rate(24960))
+    # 24960 Hz (l == 1) decodes, to the JAX package's rows.
+    sig, _ = synth_recording(n_rows=12, sample_rate=24960, seed=3)
+    res = dec.decode(sig, Rate(24960))
+    jres = jdecode.Decoder(JPROFILES["standard"]).decode(sig, JRate(24960))
+    assert res.sync_positions == jres.sync_positions and res.n_rows == jres.n_rows == 10
+    # A telemetry render of fewer than 200 rows raises the JAX message.
+    for d, r in ((dec, Rate), (jdecode.Decoder(JPROFILES["standard"]), JRate)):
+        with pytest.raises(Exception, match="Recording too short for telemetry decoding"):
+            d.decode_render_input(sig, len(sig), r(24960), "telemetry")
 
 
 def test_cli_matches_jax_cli_decode(tmp_path):
@@ -233,6 +250,15 @@ def test_cli_rotate_and_minmax(tmp_path):
     assert cli.main([str(tmp_path / "missing.wav"), "--device", "cpu", "-q"]) == 1
 
 
+@pytest.fixture(scope="module")
+def telemetry_wav(tmp_path_factory):
+    """A 230-row 11025 Hz pass: long enough for a telemetry frame."""
+    signal, _ = synth_recording(n_rows=230, sample_rate=11025, seed=5)
+    path = tmp_path_factory.mktemp("tel") / "pass.wav"
+    wav.write_wav(path, signal, wav.WavSpec(1, 11025, 16, "int"))
+    return path
+
+
 # The reference's tables of -c and -R (noaa_apt_tpu/cli.py:201-220).
 REF_CONTRASTS = {"98_percent": JContrast.from_percent(0.98), "telemetry": JContrast.telemetry(),
                  "disable": JContrast.minmax(), "histogram": JContrast.histogram()}
@@ -241,27 +267,175 @@ REF_ROTATES = {"auto": JRotate.ORBIT, "yes": JRotate.YES, "no": JRotate.NO}
 
 @pytest.mark.parametrize("option,name", [("-c", n) for n in (*REF_CONTRASTS, "percent", "minmax")]
                          + [("-R", n) for n in REF_ROTATES])
-def test_cli_takes_reference_spellings(tmp_path, caplog, option, name):
+def test_cli_takes_reference_spellings(tmp_path, caplog, telemetry_wav, option, name):
     """Each spelling of the reference's ``-c`` and ``-R`` maps to the
     reference's value (``percent`` and ``minmax`` are the port's aliases of
-    ``98_percent`` and ``disable``); a value not ported yet exits 1 with
-    "not ported yet", the others decode."""
+    ``98_percent`` and ``disable``); every contrast decodes, and ``-R
+    auto`` (orbit-based, not ported yet) exits 1 with "not ported yet"."""
     from noaa_apt_tpu_torch import cli
 
     if option == "-c":
         got = cli.CONTRASTS[name]
         want = REF_CONTRASTS[{"percent": "98_percent", "minmax": "disable"}.get(name, name)]
         assert (got.kind.value, got.percent) == (want.kind.value, want.percent)
-        ported = got.kind.value in ("percent", "minmax")
+        ported = True
     else:
         assert cli.ROTATES[name].value == REF_ROTATES[name].value
         ported = name != "auto"
-    signal, _ = synth_recording(n_rows=12, sample_rate=11025, seed=5)
-    wav_path, png_path = tmp_path / "pass.wav", tmp_path / "out.png"
-    wav.write_wav(wav_path, signal, wav.WavSpec(1, 11025, 16, "int"))
-    rc = cli.main([str(wav_path), "-o", str(png_path), "--device", "cpu", "-q", option, name])
+    png_path = tmp_path / "out.png"
+    rc = cli.main([str(telemetry_wav), "-o", str(png_path), "--device", "cpu", "-q", option, name])
     if ported:
         assert rc == 0 and np.asarray(Image.open(png_path)).shape[1] == 2080
     else:
         assert rc == 1 and not png_path.exists()
         assert f"{option} {name} is not ported yet" in caplog.text
+
+
+# -- telemetry contrast -------------------------------------------------------
+def test_telemetry_stats_match_jax():
+    """The port's device band statistics on the JAX package's decoded
+    image are within 1e-6 (relative to each array's scale) of
+    ``Decoder._telemetry_stats_stage``."""
+    signal, _ = synth_recording(n_rows=40, sample_rate=11025, noise_db=15.0, seed=6)
+    jres = jdecode.Decoder(JPROFILES["standard"]).decode(signal, JRate(11025))
+    img = np.array(jres.image_np()[: jres.n_rows])
+    got = pdecode._telemetry_stats(torch.from_numpy(img)).numpy()
+    want = [np.asarray(a)[: jres.n_rows] for a in jdecode.Decoder._telemetry_stats_stage(jres.image)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (jres.n_rows,)
+        assert float(np.abs(g - w).max()) <= 1e-6 * float(np.abs(w).max())
+
+
+def _spy_telemetry(monkeypatch, module) -> list:
+    """Record each ``Telemetry.from_bands`` row and the Telemetry made."""
+    seen, orig = [], module.Telemetry.from_bands.__func__
+
+    def spy(cls, means_a, means_b, row):
+        t = orig(cls, means_a, means_b, row)
+        seen.append((row, t))
+        return t
+
+    monkeypatch.setattr(module.Telemetry, "from_bands", classmethod(spy))
+    return seen
+
+
+@pytest.mark.parametrize("profile_name,rate", [("standard", 11025), ("fast", 48000)])
+def test_telemetry_render_matches_jax(monkeypatch, profile_name, rate):
+    """The fused telemetry render against the JAX package's: sync lists,
+    the frame row and channel names equal, (low, high) within 1e-4
+    relative, u8 under the +-1 / 0.1% rule; and it equals decode +
+    telemetry_stats + render_u8_levels."""
+    from noaa_apt_tpu.post import telemetry as jtel
+
+    from noaa_apt_tpu_torch.post import telemetry as ptel
+
+    signal, _ = synth_recording(n_rows=230, sample_rate=rate, noise_db=20.0, seed=8)
+    seen, jseen = _spy_telemetry(monkeypatch, ptel), _spy_telemetry(monkeypatch, jtel)
+    dec = Decoder(PROFILES[profile_name], device="cpu")
+    gray, sync_pos = dec.decode_render_input(signal, len(signal), Rate(rate), "telemetry")
+    jgray, jsync = jdecode.Decoder(JPROFILES[profile_name]).decode_render_input(
+        signal, len(signal), JRate(rate), "telemetry")
+    assert sync_pos == jsync and len(seen) == len(jseen) == 1
+    (row, t), (jrow, jt) = seen[0], jseen[0]
+    assert row == jrow
+    for ch in ("a", "b"):
+        assert t.get_channel_name(ch) == jt.get_channel_name(ch)
+    for wedge in (9, 8):
+        got, want = t.get_wedge_value(wedge, None), jt.get_wedge_value(wedge, None)
+        assert abs(got - want) <= 1e-4 * abs(want)
+    _u8_close(gray, jgray, f"telemetry {rate}/{profile_name} vs JAX")
+    assert set(dec.last_stage_ms) >= {"telemetry", "rows_levels_u8"}
+
+    res = dec.decode(signal, Rate(rate))
+    low, high = pdecode._telemetry_levels(*dec.telemetry_stats(res))
+    assert (low, high) == (t.get_wedge_value(9, None), t.get_wedge_value(8, None))
+    np.testing.assert_array_equal(dec.render_u8_levels(res, low, high), gray)
+
+
+# -- the l == 1 decimation path -----------------------------------------------
+L1_CASES = [("standard", 24960, 2), ("standard", 12480, 1), ("slow", 41600, 2)]
+
+
+@pytest.mark.parametrize("profile_name,rate,m", L1_CASES)
+def test_l1_path_matches_jax(profile_name, rate, m):
+    """The causal-FIR-and-decimate ingest (l == 1) through K1's twin: sync
+    lists equal, the float image within 1e-4 of JAX's scale, u8 under the
+    +-1 / 0.1% rule (int16 input, as a WAV gives it)."""
+    signal, _ = synth_recording(n_rows=18, sample_rate=rate, noise_db=20.0, seed=rate % 7)
+    s16 = np.round(signal / np.abs(signal).max() * 30000).astype(np.int16)
+    dec = Decoder(PROFILES[profile_name], device="cpu")
+    t = dec.tables(Rate(rate))
+    assert (t.l, t.m) == (1, m) and t.work_len(len(s16)) == len(s16) // m
+    jdec = jdecode.Decoder(JPROFILES[profile_name])
+    res, jres = dec.decode(s16, Rate(rate)), jdec.decode(s16, JRate(rate))
+    assert res.sync_positions == jres.sync_positions and res.n_rows == jres.n_rows >= 16
+    got, want = res.image_np(), jres.image_np()[: jres.n_rows]
+    assert float(np.abs(got - want).max()) <= 1e-4 * float(np.abs(want).max())
+    gray, sync_pos = dec.decode_render_input(s16, len(s16), Rate(rate))
+    jgray, jsync = jdec.decode_render_input(s16, len(s16), JRate(rate))
+    assert sync_pos == jsync == res.sync_positions
+    _u8_close(gray, jgray, f"l == 1 {rate}/{profile_name} vs JAX")
+    assert "causal_prefix" in dec.last_stage_ms
+
+
+@pytest.mark.parametrize("profile_name,rate,m", L1_CASES)
+def test_l1_tables_from_jax_coeff(profile_name, rate, m):
+    """The port designs the JAX package's l == 1 filter bit for bit
+    (``_plan_resample_with_filter``'s ``coeff``, designed at the input
+    rate); ``DecodeTables.from_numpy`` takes tables made from it."""
+    from noaa_apt_tpu.ops import demod as jdm
+
+    from noaa_apt_tpu_torch.ops import resample as rs
+
+    jdec = jdecode.Decoder(JPROFILES[profile_name])
+    _, work_len, coeff = jdecode._plan_resample_with_filter(
+        1000, JRate(rate), jdec.work_rate, jdec._ingest_filter(JRate(rate)))
+    assert work_len(1001) == 1001 // m
+    t = DecodeTables.design(PROFILES[profile_name], Rate(rate))
+    np.testing.assert_array_equal(t.bank[0].view(np.uint32), np.asarray(coeff, np.float32)[::-1].view(np.uint32))
+    p_c, s_c, bank = rs.causal_tables(coeff)
+    carrier, taps, template = jdec._chain_params()
+    cosphi2, sinphi = jdm.demod_constants(carrier)
+    tables = DecodeTables.from_numpy(
+        input_rate=rate, work_rate=jdec.work_rate.get_hz(), l=1, m=m, offset=0, p_c=p_c, s_c=s_c,
+        bank=bank, taps=taps, template=template, cosphi2=cosphi2, sinphi=sinphi)
+    signal, _ = synth_recording(n_rows=12, sample_rate=rate, seed=2)
+    got = Decoder(PROFILES[profile_name], device="cpu", tables=tables).decode_render_input(
+        signal, len(signal), Rate(rate))
+    want = Decoder(PROFILES[profile_name], device="cpu").decode_render_input(
+        signal, len(signal), Rate(rate))
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[0], want[0])
+    with pytest.raises(ValueError, match=r"l = 1 \(decimation\) tables need s_c = \[0\]"):
+        DecodeTables.from_numpy(**{**tables.as_numpy(), "s_c": [3]})
+
+
+@pytest.mark.parametrize("profile_name,rate,m", L1_CASES)
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_l1_table_emulation_equals_plain(profile_name, rate, m, dtype):
+    """A torch emulation of the l == 1 sum, straight from its formula
+    ``y[n] = sum_{j < min(K, n*m)} coeff[j] * x[n*m - j]`` (descending j
+    from +0, one op per step), is ``torch.equal`` to K1's plain twin fed
+    by ``causal_tables`` over ``causal_input``; ``y[0]`` is +0."""
+    from noaa_apt_tpu_torch.ops import resample as rs
+
+    t = DecodeTables.design(PROFILES[profile_name], Rate(rate))
+    coeff = torch.from_numpy(t.bank[0].copy()).flip(0)
+    k = coeff.shape[0]
+    rng = np.random.default_rng(rate)
+    if dtype == "int16":
+        x = torch.from_numpy(rng.integers(-32768, 32768, 3 * k + 101, dtype=np.int16))
+    else:
+        x = torch.from_numpy(rng.normal(0, 1e4, 3 * k + 101).astype(np.float32))
+    n_out = t.work_len(x.shape[0])
+    xf = x.to(torch.float32)
+    idx = torch.arange(n_out, dtype=torch.int64) * m
+    want = torch.zeros(n_out, dtype=torch.float32)
+    for j in range(k - 1, -1, -1):
+        q = idx - j
+        want = want + coeff[j] * torch.where(q >= 1, xf[q.clamp(min=0)], torch.zeros(()))
+    args = [torch.from_numpy(a) for a in (t.bank, t.p_c, t.s_c)]
+    got = rs.polyphase_resample(rs.causal_input(x, k), *args, m, n_out)
+    assert rs.polyphase_resample.last_variant == "plain"
+    assert torch.equal(got, want)
+    assert got[0].item() == 0.0 and not torch.signbit(got[0])

@@ -250,9 +250,13 @@ def test_resample_chunked_bit_equal(rate_hz, profile_name):
     _assert_bits_equal(small.numpy(), full.numpy())
 
 
-# K1's block-major variant: l <= 32, int16 input.
+# K1's block-major variant: l <= 32, int16 input; l <= 8 folded
+# (l = 1 at 24960 and 12480 Hz standard and 41600 Hz slow, the l == 1
+# path's tables; l = 2, 3, 5 at 24960 fast, 41600 standard, 24960 slow).
 BLOCK_CASES = [(48000, "standard"), (48000, "fast"), (48000, "slow"), (96000, "standard"),
-               (192000, "slow"), (8000, "slow"), (24000, "standard")]
+               (192000, "slow"), (8000, "slow"), (24000, "standard"), (24960, "standard"),
+               (12480, "standard"), (41600, "slow"), (24960, "fast"), (41600, "standard"),
+               (24960, "slow")]
 
 
 def _emulate_block_kernel(x, w, live, g, l, m, k0, out_len):
@@ -286,14 +290,18 @@ def _full_range_pcm(rate_hz: int, seed: int) -> torch.Tensor:
 @pytest.mark.parametrize("cut", ["whole", "k0_short", "tail"])
 def test_block_order_bit_equal_plain(rate_hz, profile_name, cut):
     """The block-major variant's summation order, over its own tap table
-    and live mask, is ``torch.equal`` to the plain twin: whole work
-    length; ``k0 = 7`` cut one block short of the end; and the
-    reference's full output count, whose last windows pass n."""
+    and live mask (folded as the wrapper launches it), is ``torch.equal``
+    to the plain twin: whole work length; ``k0 = 7`` cut one block short
+    of the end; and the reference's full output count, whose last windows
+    pass n."""
     t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
     x = _full_range_pcm(rate_hz, seed=rate_hz + t.l)
     n = x.shape[0]
-    w, live, g = rs.k1_block_table(t.bank, t.p_c, t.s_c)
-    assert w.shape == (int(t.s_c.max()) + t.bank.shape[1], 4 * g) and g == (4 if t.l <= 16 else 8)
+    p_f, s_f, m_f = rs.k1_block_fold(t.p_c, t.s_c, t.m)
+    l_f = p_f.shape[0]
+    assert l_f == (16 // t.l * t.l if t.l <= 8 else t.l)
+    w, live, g = rs.k1_block_table(t.bank, p_f, s_f)
+    assert w.shape == (int(s_f.max()) + t.bank.shape[1], 4 * g) and g == (4 if l_f <= 16 else 8)
     k0, out_len = 0, t.work_len(n)
     if cut == "k0_short":
         k0, out_len = 7, out_len - t.l - 7
@@ -303,8 +311,28 @@ def test_block_order_bit_equal_plain(rate_hz, profile_name, cut):
         assert int(t.s_c[k % t.l]) + k // t.l * t.m + t.bank.shape[1] > n  # the last window passes n
     args = (torch.from_numpy(t.bank), torch.from_numpy(t.p_c), torch.from_numpy(t.s_c), t.m)
     want = rs.polyphase_resample_plain(x, *args, out_len, k0)
-    got = _emulate_block_kernel(x, w, live, g, t.l, t.m, k0, out_len)
+    got = _emulate_block_kernel(x, w, live, g, l_f, m_f, k0, out_len)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rate_hz,profile_name", [c for c in BLOCK_CASES if c[0] in (24960, 12480, 41600)])
+def test_block_fold_keeps_every_output(rate_hz, profile_name):
+    """The plain twin over the folded tables (b = 16 // l blocks as one)
+    gives the unfolded tables' outputs, bit for bit, from any k0."""
+    t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
+    p_f, s_f, m_f = rs.k1_block_fold(t.p_c, t.s_c, t.m)
+    b = p_f.shape[0] // t.l
+    assert m_f == b * t.m and b == 16 // t.l
+    np.testing.assert_array_equal(s_f[t.l : 2 * t.l], t.s_c + t.m)
+    x = _full_range_pcm(rate_hz, seed=3)
+    bank = torch.from_numpy(t.bank)
+    for k0, n_out in ((0, t.work_len(x.shape[0])), (5, 777)):
+        want = rs.polyphase_resample_plain(x, bank, torch.from_numpy(t.p_c), torch.from_numpy(t.s_c),
+                                           t.m, n_out, k0)
+        banked = bank[torch.from_numpy(p_f)]  # one bank row per folded class
+        got = rs.polyphase_resample_plain(x, banked, torch.arange(p_f.shape[0], dtype=torch.int32),
+                                          torch.from_numpy(s_f.astype(np.int32)), m_f, n_out, k0)
+        assert torch.equal(got, want)
 
 
 # K1's class-major variant: l > 32, int16 input.
@@ -418,7 +446,8 @@ def test_block_table_layout():
 OPTIN = 232_448  # an H100's opt-in shared memory per block
 
 
-@pytest.mark.parametrize("rate_hz", [8000, 11025, 22050, 24000, 32000, 44100, 48000, 96000, 192000])
+@pytest.mark.parametrize("rate_hz", [8000, 11025, 22050, 24000, 32000, 44100, 48000, 96000, 192000,
+                                     12480, 24960, 41600])
 @pytest.mark.parametrize("profile_name", ["standard", "fast", "slow"])
 def test_k1_variant_by_shape(profile_name, rate_hz):
     """With int16 input, "block" for every l <= 32 shape and "class" for
@@ -427,8 +456,9 @@ def test_k1_variant_by_shape(profile_name, rate_hz):
     "phase" for float32 input and for a budget below the variant's CTA."""
     t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
     if t.l <= 32:
-        w, _, g = rs.k1_block_table(t.bank, t.p_c, t.s_c)
-        smem, want = rs.k1_block_smem(t.l, t.m, w.shape[0], g), "block"
+        p_f, s_f, m_f = rs.k1_block_fold(t.p_c, t.s_c, t.m)
+        w, _, g = rs.k1_block_table(t.bank, p_f, s_f)
+        smem, want = rs.k1_block_smem(p_f.shape[0], m_f, w.shape[0], g), "block"
     else:
         assert t.l in (39, 52) or rate_hz in (11025, 22050, 44100)
         smem, want = rs.k1_class_smem(rs.k1_class_table(t.bank, t.p_c, t.s_c)[1]), "class"
@@ -453,13 +483,14 @@ def test_k1_block_smem_at_48k():
 def _table_cache_follows_bank(variant: str, rate_hz: int, first_tap) -> None:
     t = DecodeTables.design(PROFILES["standard"], Rate(rate_hz))
     bank, p_c, s_c = (torch.from_numpy(a.copy()) for a in (t.bank, t.p_c, t.s_c))
-    first = rs._table(variant, bank, p_c, s_c)
-    assert rs._table(variant, bank, p_c, s_c) is first
+    extra = (t.m,) if variant == "block" else ()  # the fold's stride
+    first = rs._table(variant, bank, p_c, s_c, *extra)
+    assert rs._table(variant, bank, p_c, s_c, *extra) is first
     bank[0, 0] += 1.0
-    second = rs._table(variant, bank, p_c, s_c)
+    second = rs._table(variant, bank, p_c, s_c, *extra)
     assert second is not first and float(first_tap(second, t)) == float(bank[int(t.p_c[0]), 0])
-    assert rs._table(variant, bank, p_c, s_c.clone()) is not second
-    key = (variant, id(bank))
+    assert rs._table(variant, bank, p_c, s_c.clone(), *extra) is not second
+    key = (variant, id(bank), *extra)
     del bank, first, second
     assert key not in rs._tables
 

@@ -1,6 +1,7 @@
 """Isolation and device rules of the PyTorch port (``noaa_apt_tpu_torch``).
 
-- it imports neither ``jax`` nor any module of ``noaa_apt_tpu``;
+- it imports neither ``jax`` nor any module of ``noaa_apt_tpu``, and
+  reads its resources (the palettes) from its own ``res/``;
 - its entry points run on the card and raise without CUDA unless the
   caller asks for the CPU;
 - importing its kernel modules needs no ``nvcc`` (kernels build at the
@@ -31,13 +32,22 @@ def _run_py(code: str, env=None) -> subprocess.CompletedProcess:
                           text=True, timeout=240, env=env)
 
 
+def _port_modules() -> list[str]:
+    """Every module of the port, by its dotted name."""
+    return sorted(".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+                  for p in PORT.rglob("*.py"))
+
+
 def test_port_never_loads_jax_or_the_jax_package():
+    """Importing every module of the port (old and new) loads neither."""
+    mods = _port_modules()
+    assert {"noaa_apt_tpu_torch.io.config", "noaa_apt_tpu_torch.io.context",
+            "noaa_apt_tpu_torch.post.telemetry", "noaa_apt_tpu_torch.post.imageext",
+            "noaa_apt_tpu_torch.post.palette"} <= set(mods)
     code = (
-        "import sys\n"
-        "import noaa_apt_tpu_torch, noaa_apt_tpu_torch.cli, noaa_apt_tpu_torch.graph.decode\n"
-        "import noaa_apt_tpu_torch.graph.process, noaa_apt_tpu_torch.ops.resample\n"
-        "import noaa_apt_tpu_torch.ops.stage, noaa_apt_tpu_torch.ops.select\n"
-        "import noaa_apt_tpu_torch.synth, noaa_apt_tpu_torch.io.wav, noaa_apt_tpu_torch.io.png\n"
+        "import importlib, sys\n"
+        f"for name in {mods!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'noaa_apt_tpu' or m.startswith('noaa_apt_tpu.'))\n"
         "print(bad)\n"
@@ -117,11 +127,13 @@ def test_png_writer_round_trips(tmp_path):
     gray = rng.integers(0, 256, (5, 33), dtype=np.uint8)
     png.write_png(tmp_path / "a.png", rgba)
     png.write_png(tmp_path / "b.png", gray)
+    png.write_png(tmp_path / "c.png", rgba[..., :3])
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "a.png")), rgba)
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "b.png")), gray)
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "c.png")), rgba[..., :3])
     assert png.png_size(tmp_path / "a.png") == (2080, 7)
     with pytest.raises(ValueError):
-        png.encode_png(rgba[..., :3])
+        png.encode_png(rgba[..., :2])
 
 
 def test_wav_loader_keeps_int16(tmp_path):
@@ -136,14 +148,36 @@ def test_wav_loader_keeps_int16(tmp_path):
 
 
 def test_finish_image_refuses_unported_features():
+    """Histogram equalization and false colour finish the image; the
+    orbit-based features (map overlay, ``Rotate.ORBIT``) still raise."""
     from noaa_apt_tpu_torch.err import InternalError
     from noaa_apt_tpu_torch.graph.process import finish_image
-    from noaa_apt_tpu_torch.types import ContrastKind, Rotate
+    from noaa_apt_tpu_torch.io.config import res_path
+    from noaa_apt_tpu_torch.types import ColorSettings, ContrastKind, Rotate
 
-    gray = np.zeros((3, 2080), np.uint8)
+    gray = np.tile(np.arange(2080, dtype=np.int64) % 251, (3, 1)).astype(np.uint8)
     assert finish_image(gray, ContrastKind.PERCENT, Rotate.NO).shape == (3, 2080, 4)
-    for kwargs in ({"kind": ContrastKind.HISTOGRAM, "rotate": Rotate.NO},
-                   {"kind": ContrastKind.PERCENT, "rotate": Rotate.ORBIT},
-                   {"kind": ContrastKind.PERCENT, "rotate": Rotate.NO, "color": object()}):
+    color = ColorSettings(res_path("palettes", "noaa-apt-daylight.png"))
+    eq = finish_image(gray, ContrastKind.HISTOGRAM, Rotate.NO)
+    assert eq.shape == (3, 2080, 4) and not np.array_equal(eq[..., 0], gray)
+    fc = finish_image(gray, ContrastKind.PERCENT, Rotate.NO, color)
+    assert (fc[:, 86:995, 0] != fc[:, 86:995, 2]).any()  # channel A is coloured
+    np.testing.assert_array_equal(fc[:, 1040:, 0], gray[:, 1040:])
+    for kwargs in ({"kind": ContrastKind.PERCENT, "rotate": Rotate.ORBIT},
+                   {"kind": ContrastKind.PERCENT, "rotate": Rotate.NO, "orbit": object()}):
         with pytest.raises(InternalError, match="not ported yet"):
             finish_image(gray, **kwargs)
+
+
+def test_port_ships_its_own_resources(monkeypatch):
+    """The palettes resolve inside the port's package (and are package
+    data), not in ``noaa_apt_tpu/res``."""
+    import tomllib
+
+    from noaa_apt_tpu_torch.io.config import res_path
+
+    monkeypatch.delenv("NOAA_APT_RES_DIR", raising=False)
+    assert res_path() == PORT / "res"
+    assert len(list(res_path("palettes").glob("*.png"))) == 22
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"]
+    assert "res/palettes/*.png" in data["noaa_apt_tpu_torch"]

@@ -13,8 +13,11 @@ of ``chip_smoke.py``, and runs ROOT's K1, K2 and K3 wrappers on it at
 the main path's shapes (standard profile, B = 1; K3 also on four copies
 of the row with different lengths, B = 4; K1 also on the fast and slow
 profiles at 48 kHz, on the synthesized 11025 Hz pass on all three
-profiles, and on seeded 10-minute int16 passes at 22050 Hz standard and
-44100 Hz standard and slow, with the variant it ran where ROOT's wrapper
+profiles, and on seeded 10-minute int16 passes at 22050 Hz standard,
+44100 Hz standard and slow, and, where ROOT's tables have the l == 1
+path (``ops/resample.causal_input``), at 24960 and 12480 Hz standard and
+41600 Hz slow over ``causal_input``, and at 24960 Hz fast (l = 2) and
+41600 Hz standard (l = 3), with the variant it ran where ROOT's wrapper
 records one).  It holds each result
 ``torch.equal`` to ROOT's plain twin, and times each call with
 ``time_ms`` of this tree's ``chip_smoke.py``, so that every tree is
@@ -67,6 +70,7 @@ def _run_one(root: Path, path: Path) -> dict:
     from noaa_apt_tpu_torch.io import wav
     from noaa_apt_tpu_torch.ops import _build
     from noaa_apt_tpu_torch.ops import demod as dm
+    from noaa_apt_tpu_torch.ops import resample as rs
     from noaa_apt_tpu_torch.ops import select as sel
     from noaa_apt_tpu_torch.ops.resample import polyphase_resample, polyphase_resample_plain
     from noaa_apt_tpu_torch.ops.stage import demod_fir_corr, demod_fir_corr_plain
@@ -123,19 +127,26 @@ def _run_one(root: Path, path: Path) -> dict:
         walk = lambda: sel._walk_launch(rows, nv, summ, spr, md, max_peaks, res)  # noqa: E731
         rec["walk_ms"] = cs.time_ms(torch, walk)
     # K1 on the other shapes: 48 kHz fast and slow, 11025 Hz on every
-    # profile, 22050 Hz standard, 44100 Hz standard and slow.
+    # profile, 22050 Hz standard, 44100 Hz standard and slow; the l <= 3
+    # rates where ROOT has the l == 1 path.
     path11 = path.with_name("pass_11025.wav")
     cs.synth_wav(path11, 11025, cs.PASS_ROWS)
     pcm11 = np.array(wav.load_device_ready(path11)[0])
-    for key, profile, rate_k, pcm in (
-            ("48000_fast", FAST, 48000, np.array(signal)), ("48000_slow", SLOW, 48000, np.array(signal)),
-            ("11025_standard", STANDARD, 11025, pcm11), ("11025_fast", FAST, 11025, pcm11),
-            ("11025_slow", SLOW, 11025, pcm11), ("22050_standard", STANDARD, 22050, None),
-            ("44100_standard", STANDARD, 44100, None), ("44100_slow", SLOW, 44100, None)):
+    shapes = [("48000_fast", FAST, 48000, np.array(signal)), ("48000_slow", SLOW, 48000, np.array(signal)),
+              ("11025_standard", STANDARD, 11025, pcm11), ("11025_fast", FAST, 11025, pcm11),
+              ("11025_slow", SLOW, 11025, pcm11), ("22050_standard", STANDARD, 22050, None),
+              ("44100_standard", STANDARD, 44100, None), ("44100_slow", SLOW, 44100, None)]
+    if hasattr(rs, "causal_input"):
+        shapes += [("24960_standard", STANDARD, 24960, None), ("12480_standard", STANDARD, 12480, None),
+                   ("41600_slow", SLOW, 41600, None), ("24960_fast", FAST, 24960, None),
+                   ("41600_standard", STANDARD, 41600, None)]
+    for key, profile, rate_k, pcm in shapes:
         tk = DecodeTables.design(profile, Rate(rate_k))
         xk = torch.from_numpy(pcm if pcm is not None else cs.seeded_pcm(rate_k)).to(dev)
         argk = [torch.from_numpy(a).to(dev) for a in (tk.bank, tk.p_c, tk.s_c)]
         wk = tk.work_len(xk.shape[0])
+        if tk.l == 1:
+            xk = rs.causal_input(xk, tk.bank.shape[1])
         k1k = lambda: polyphase_resample(xk, *argk, tk.m, wk)  # noqa: E731
         cs.assert_equal(torch, f"polyphase_resample@{key}", k1k(),
                         polyphase_resample_plain(xk, *argk, tk.m, wk))
