@@ -44,7 +44,20 @@ Phases, one JSON line each (``{"phase": ...}``):
    launch of each kernel per decode; none of K3 without sync, none at
    all for the ``.npy``); the telemetry run checks the channel names
    that the synthesizer encodes ("2" and "4");
-6. ``select_stage`` — the decoder's select stage (K3 and its one fetch),
+6. ``map_path`` — the CLI on the 48 kHz pass with the map overlay and
+   ``-R auto`` (``-m yes -R auto -s noaa_19 -T <file> -t <time>``: a
+   pinned TLE and a NOAA 19 pass over Bolivia and Argentina, the states
+   layer skipped through its failure memo): one launch of each kernel,
+   more than 1000 ink pixels in each channel's +-456 px window, the
+   rotation equal to ``geo.orbit.south_to_north_pass``, and the finish
+   stage's wall time, which holds the overlay;
+7. ``resample_tool`` — the CLI's WAV -> WAV mode (``-r``): 48000 -> 11025
+   on the 48 kHz pass, 11025 -> 48000 on the 11025 Hz pass and 24960 ->
+   12480 (l == 1) on the 24960 Hz pass, with one launch of K1 ("phase",
+   the tool's float32 samples) per run; K1 at each run's tables
+   ``torch.equal`` to its twin on the card and timed as in phase 3
+   (beside ``F.conv1d``); the written WAV's length, rate and mtime;
+8. ``select_stage`` — the decoder's select stage (K3 and its one fetch),
    median of five decodes of the 48 kHz pass, beside K3's own time.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
@@ -71,6 +84,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, dense peak (data sheet)
 # two; a separately issued multiply or add is one op at half that rate.
 FP32_OPS_PER_S = 33.5e12
 PASS_ROWS = 1200  # 10 minutes at 2 rows/s
+# The pinned Jan-2020 TLE of the JAX package's tests (geo.rs:206-214), and
+# the start of a NOAA 19 pass over Bolivia and Argentina.
+MAP_TLE = """NOAA 15
+1 25338U 98030A   20028.53684332  .00000010  00000-0  22730-4 0  9996
+2 25338  98.7308  54.2052 0009655 316.5487  43.4931 14.25949056128892
+NOAA 18
+1 28654U 05018A   20028.55430359  .00000064  00000-0  59410-4 0  9998
+2 28654  99.0657  83.5290 0013366 267.3059  92.6583 14.12484618757024
+NOAA 19
+1 33591U 09005A   20028.54874297  .00000001  00000-0  25623-4 0  9996
+2 33591  99.1936  30.2411 0014855 109.6767 250.6008 14.12393428565240"""
+MAP_START = "2020-01-26T09:23:20+00:00"
 TEL_ROWS = 230  # the reference phase's telemetry decodes: a frame needs 200 rows
 REPS = 20
 DECODES = 5  # decodes behind the select-stage median
@@ -280,7 +305,7 @@ def resample_case(torch, dev, x, t, label: str, work: int | None = None):
     rec = dict(
         max_abs_err=err, ms=time_ms(torch, k1), plain_ms=time_ms(torch, k1p, reps=3, warmup=1, batch=1),
         bound_ms=b1, bound_by=by1, library_ms=lib, variant=variant, device_ms=device_ms(torch, k1),
-        shape=f"{label}: i16[{n}] -> f32[{work}], l={t.l} m={t.m} T={t.bank.shape[1]}",
+        shape=f"{label}: {str(x.dtype)[6:]}[{n}] -> f32[{work}], l={t.l} m={t.m} T={t.bank.shape[1]}",
     )
     return rec, y
 
@@ -615,6 +640,108 @@ def main_path_runs(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr:
     return launches
 
 
+def ink(img, center: int) -> int:
+    """Overlay pixels in the +-456 px window around ``center``: the grey
+    image has R == B, the map's colours do not."""
+    import numpy as np
+
+    win = img[:, center - 456 : center + 456].astype(np.int16)
+    return int((np.abs(win[..., 0] - win[..., 2]) > 10).sum())
+
+
+def map_path_phase(torch, tmp: Path, wav_path: Path, rate: int, spr: int, k1_variant: str | None) -> None:
+    """The CLI with the map overlay and ``-R auto`` on ``wav_path``: one
+    launch of each kernel, overlay ink in both channels, the rotation
+    that the pass direction asks for (the CLI's status lines say whether
+    it rotated), and the finish stage's wall time."""
+    from datetime import datetime
+
+    from noaa_apt_tpu_torch.geo import states
+    from noaa_apt_tpu_torch.geo.orbit import south_to_north_pass
+    from noaa_apt_tpu_torch.io import png
+    from noaa_apt_tpu_torch.types import OrbitSettings, RefTime, SatName
+
+    states._download_failed[0] = True  # no network here: skip the states layer at once
+    tle = tmp / "weather.txt"
+    tle.write_text(MAP_TLE)
+    messages = _Messages()
+    cli_log = logging.getLogger("noaa_apt_tpu_torch")
+    cli_log.addHandler(messages)
+    try:
+        report = main_path_phase(torch, wav_path, tmp / "map.png", rate, spr, k1_variant,
+                                 ("-m", "yes", "-R", "auto", "-s", "noaa_19", "-T", str(tle), "-t",
+                                  MAP_START), label="map_auto_rotate")
+    finally:
+        cli_log.removeHandler(messages)
+    turn = south_to_north_pass(OrbitSettings(SatName.NOAA_19,
+                                             RefTime.start(datetime.fromisoformat(MAP_START)), MAP_TLE))
+    rotated = "Rotating output image" in messages.messages
+    if rotated != turn or "Drawing map" not in messages.messages:
+        raise AssertionError(f"map run: rotated {rotated}, south_to_north_pass {turn}, map drawn "
+                             f"{'Drawing map' in messages.messages}")
+    img = png.read_png(tmp / "map.png")
+    ink_a, ink_b = ink(img, 539), ink(img, 1579)
+    if min(ink_a, ink_b) <= 1000:
+        raise AssertionError(f"map run: {ink_a} and {ink_b} ink pixels in the channel windows")
+    emit("map_path", rate=rate, rotated=rotated, south_to_north_pass=turn, ink_a=ink_a, ink_b=ink_b,
+         finish_s=report["finish_s"], wall_s=report["wall_s"], launches=report["launches"])
+
+
+def resample_tool_phase(torch, dev, tmp: Path, runs, k1_variant: str | None = "phase") -> list[dict]:
+    """The CLI's ``-r`` on each ``(wav, input rate, output rate)`` of
+    ``runs``: one K1 launch per run (counts set to 0 just before, read
+    just after), in ``k1_variant``; then K1 at that run's tables against
+    its twin and timed (``resample_case``); the written WAV's length,
+    rate and mtime.  Returns the K1 records."""
+    from types import SimpleNamespace
+
+    from noaa_apt_tpu_torch import cli, ops
+    from noaa_apt_tpu_torch.core.frequency import Freq, Rate
+    from noaa_apt_tpu_torch.graph.debug import k1_inputs, resample_lowpass
+    from noaa_apt_tpu_torch.graph.decode import _plan_resample_with_filter
+    from noaa_apt_tpu_torch.io import config as cfg
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.ops import resample as rs
+
+    settings = cfg.build_settings(cfg.load_de_settings())
+    records = []
+    for src, rin, rout in runs:
+        out = tmp / f"resampled_{rin}_{rout}.wav"
+        report: dict = {}
+        ops.reset_launch_counts()
+        rc = cli.main([str(src), "-r", str(rout), "-o", str(out), "-q"], report=report)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        variant = rs.polyphase_resample.last_variant
+        if rc != 0:
+            raise AssertionError(f"-r {rout} on the {rin} Hz pass returned {rc}")
+        if launches != {"polyphase_resample": 1, "demod_fir_corr": 0, "select_peaks": 0}:
+            raise AssertionError(f"launches of -r {rout} on the {rin} Hz pass: {launches}")
+        if k1_variant is not None and variant != k1_variant:
+            raise AssertionError(f"-r {rout} on the {rin} Hz pass ran K1 {variant}, not {k1_variant}")
+        x_host, _ = wav.load_wav(src)
+        filt = resample_lowpass(Rate(rin), Rate(rout), settings.wav_resample_atten,
+                                Freq.from_pi_rad(settings.wav_resample_delta_freq))
+        l, m, coeff = _plan_resample_with_filter(Rate(rin), Rate(rout), filt)
+        x, bank, p_c, s_c, _, work = k1_inputs(torch.from_numpy(x_host).to(dev), l, m, coeff)
+        tables = SimpleNamespace(bank=bank.cpu().numpy(), p_c=p_c.cpu().numpy(), s_c=s_c.cpu().numpy(),
+                                 l=l, m=m)
+        rec, _ = resample_case(torch, dev, x, tables, f"-r {rin} -> {rout}", work=work)
+        if k1_variant is not None and rec["variant"] != k1_variant:
+            raise AssertionError(f"K1 at the tables of -r {rout}: {rec['variant']}, not {k1_variant}")
+        got, spec = wav.load_wav(out)
+        if spec.sample_rate != rout or got.shape[0] != work:
+            raise AssertionError(f"-r {rout}: wrote {got.shape[0]} samples at {spec.sample_rate} Hz, "
+                                 f"expected {work} at {rout}")
+        if int(out.stat().st_mtime) != int(src.stat().st_mtime):
+            raise AssertionError(f"-r {rout}: the input's mtime was not copied")
+        rec.update(launches=launches["polyphase_resample"], tool_wall_s=report["wall_s"],
+                   rates=[rin, rout], l=l, m=m)
+        emit("resample_tool", name="polyphase_resample", bit_equal=True, **rec)
+        records.append(rec)
+    return records
+
+
 def select_stage_phase(wav_path: Path, k3_ms: float) -> None:
     """The decoder's select stage (K3 and its one fetch) beside K3's own
     wrapper time: the median over ``DECODES`` decodes of the pass."""
@@ -692,6 +819,9 @@ def main() -> int:
         global_bank_phase(torch, dev)
         reference_phase(torch)
         launches = main_path_runs(torch, tmp, wav48, wav11, wav25, spr)
+        map_path_phase(torch, tmp, wav48, 48000, spr, "block")
+        tool = resample_tool_phase(torch, dev, tmp, ((wav48, 48000, 11025), (wav11, 11025, 48000),
+                                                     (wav25, 24960, 12480)))
         select_stage_phase(wav48, rec["select_peaks"]["ms"])
 
     sources = {
@@ -708,6 +838,10 @@ def main() -> int:
                  "library_ms": r["library_ms"]}
         if name == "polyphase_resample":
             entry["variant"] = r["variant"]
+            entry["resample_tool"] = [
+                {key: t[key] for key in ("shape", "variant", "launches", "max_abs_err", "ms", "device_ms",
+                                         "plain_ms", "bound_ms", "bound_by", "library_ms", "tool_wall_s")}
+                for t in tool]
         if name == "select_peaks":
             entry.update({key: r[key] for key in ("summary_ms", "walk_ms", "jumps", "walk_steps",
                                                   "ns_per_jump")})

@@ -16,9 +16,10 @@ Layer map (mirrors ``noaa_apt_tpu``):
 
 - :mod:`noaa_apt_tpu_torch.core`   units (Freq/Rate), filter design, profiles
 - :mod:`noaa_apt_tpu_torch.ops`    kernel wrappers and their plain twins
-- :mod:`noaa_apt_tpu_torch.graph`  the eager decode pipeline, image finish
+- :mod:`noaa_apt_tpu_torch.graph`  the eager decode pipeline, image finish, the resample tool
 - :mod:`noaa_apt_tpu_torch.post`   host contrast oracle, rotate
-- :mod:`noaa_apt_tpu_torch.io`     WAV I/O
+- :mod:`noaa_apt_tpu_torch.geo`    SGP4 orbits, TLEs, shapefiles, the map overlay (host)
+- :mod:`noaa_apt_tpu_torch.io`     WAV, PNG, settings, filename time/satellite inference
 - :mod:`noaa_apt_tpu_torch.cli`    the command line (``python -m noaa_apt_tpu_torch``)
 """
 

@@ -1,20 +1,25 @@
-"""Command line of the port: WAV (or a raw ``.npy``) -> PNG.
+"""Command line of the port: WAV (or a raw ``.npy``) -> PNG, and WAV -> WAV.
 
-Behavioral contract: the single-file decode branch of
-``noaa_apt_tpu/cli.py:129-565`` for the ported options: every contrast
-(``-c``), false colour (``-F``, ``-P``), ``-R yes|no``, ``--no-sync``,
-``--raw-out`` and a ``.npy`` input, ``-p``, ``-v``, ``-d``, ``-q``.  The
-decode runs on the card unless ``--device cpu`` is given; without CUDA
-and without that flag it raises.  With sync on and no ``--raw-out`` it
-takes the fused path (:meth:`Decoder.decode_render_input` ->
-:func:`finish_image`), else :meth:`Decoder.decode` -> :func:`process`.
-The options that need ``geo/`` (``-m``, ``-R auto``, ``-s``, ``-t``,
-``-T``) and the other modes (``-r``, ``--wav-steps``,
-``--export-resample-filtered``, a directory, ``--stream``,
-``--distributed``, ``--ingest`` other than ``device``, no input: the
-GUI) exit 1 with "not ported yet" and write no file.
+Behavioral contract: the single-file decode branch and the resample
+branch of ``noaa_apt_tpu/cli.py:129-565`` for the ported options: every
+contrast (``-c``), false colour (``-F``, ``-P``), ``-R yes|no|auto``, the
+map overlay (``-m``, ``--map-yaw``, ``--map-hscale``, ``--map-vscale``),
+the orbit options (``-s``, ``-t``, ``-T``; else time and satellite from
+the filename or the file's mtime), ``--no-sync``, ``--raw-out`` and a
+``.npy`` input, ``-p``, ``-v``, ``-d``, ``-q``, and ``-r RATE`` (the WAV
+-> WAV resample tool).  The decode and the resample run on the card
+unless ``--device cpu`` is given; without CUDA and without that flag they
+raise.  With sync on and no ``--raw-out`` the decode takes the fused path
+(:meth:`Decoder.decode_render_input` -> :func:`finish_image`), else
+:meth:`Decoder.decode` -> :func:`process`.  A bad ``-m``, ``-s``, ``-t``
+or ``-T`` prints the JAX CLI's message and returns 0, as that CLI does.
+The other modes (``--wav-steps``, ``--export-resample-filtered``, a
+directory, ``--stream``, ``--distributed``, ``--ingest`` other than
+``device``, no input: the GUI) exit 1 with "not ported yet" and write no
+file.
 
-    python -m noaa_apt_tpu_torch in.wav -o out.png [-c telemetry] [-F] [--device cpu]
+    python -m noaa_apt_tpu_torch in.wav -o out.png [-c telemetry] [-F] [-m yes -R auto] [--device cpu]
+    python -m noaa_apt_tpu_torch in.wav -r 11025 -o out.wav [--device cpu]
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import argparse
 import logging
 import time
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
@@ -30,18 +36,20 @@ from . import FINAL_RATE, __version__, err
 from .core.frequency import Rate
 from .core.profiles import PROFILES
 from .device import resolve_device
+from .geo.states import prefetch_states_async
+from .graph import resample_tool
 from .graph.decode import Decoder
 from .graph.process import finish_image, process
 from .io import config as cfg
-from .io import png, wav
+from .io import misc, png, wav
 from .io.context import Context
-from .types import ColorSettings, Contrast, ContrastKind, Rotate
+from .types import (SAT_IDS, ColorSettings, Contrast, ContrastKind, MapSettings, OrbitSettings,
+                    RefTime, Rotate)
 
 log = logging.getLogger("noaa_apt_tpu_torch")
 
 # ``-c`` and ``-R`` as the reference spells them (``noaa_apt_tpu/cli.py:201-220``),
-# plus the port's own ``percent`` and ``minmax``.  ``-R auto`` is refused
-# with "not ported yet".
+# plus the port's own ``percent`` and ``minmax``.
 CONTRASTS = {
     "98_percent": Contrast.from_percent(0.98),
     "telemetry": Contrast.telemetry(),
@@ -60,29 +68,36 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("input_filename", nargs="?", help=(
         "Input WAV file, or a .npy written by --raw-out to re-process."))
-    p.add_argument("-o", "--output", metavar="FILENAME", default="./output.png",
-                   help="Output PNG path. Default: ./output.png")
+    p.add_argument("-o", "--output", metavar="FILENAME", help=(
+        "Output path. When decoding images the default is './output.png', when resampling "
+        "the default is './output.wav'."))
     p.add_argument("-v", "--version", action="store_true", help="Show version and quit.")
     p.add_argument("-d", "--debug", action="store_true", help="Print debugging messages.")
     p.add_argument("-q", "--quiet", action="store_true", help="Don't print info messages.")
-    p.add_argument("-r", "--resample", metavar="SAMPLE_RATE", type=int,
-                   help="Resample WAV file to a given sample rate (not ported yet).")
+    p.add_argument("-r", "--resample", metavar="SAMPLE_RATE", type=int, help=(
+        "Resample WAV file to a given sample rate, no APT image will be decoded."))
     p.add_argument("--no-sync", dest="sync", action="store_false",
                    help="Disable syncing, useful when the sync frames are noisy.")
     p.add_argument("-c", "--contrast", choices=list(CONTRASTS), default="98_percent",
                    help='Contrast: "98_percent" (default), "telemetry", "histogram" or '
                         '"disable" (min/max).')
-    p.add_argument("-s", "--sat", metavar="SATELLITE", help="Satellite name (not ported yet).")
-    p.add_argument("-m", "--map", metavar="MAP_MODE", help='Map overlay: "no"; "yes" is not ported yet.')
-    p.add_argument("-R", "--rotate", choices=list(ROTATES), default="no",
-                   help='Rotate the image 180 degrees: "yes" or "no" (default); "auto" is not '
-                        "ported yet.")
+    p.add_argument("-s", "--sat", metavar="SATELLITE", help=(
+        'Satellite name: "noaa_15", "noaa_18" or "noaa_19". Default: guessed from the '
+        "filename, else NOAA 19."))
+    p.add_argument("-m", "--map", metavar="MAP_MODE", help='Enable map overlay: "yes" or "no".')
+    p.add_argument("--map-yaw", metavar="YAW", type=float,
+                   help="Map yaw correction in degrees. Default: 0.")
+    p.add_argument("--map-hscale", metavar="HSCALE", type=float,
+                   help="Horizontal map scale correction. Default: 1.")
+    p.add_argument("--map-vscale", metavar="VSCALE", type=float,
+                   help="Vertical map scale correction. Default: 1.")
+    p.add_argument("-R", "--rotate", choices=list(ROTATES), default="no", help=(
+        'Rotate image: "auto", "yes", "no" (default). "auto" uses orbit calculations.'))
     p.add_argument("-F", "--false-color", action="store_true",
                    help="Attempt to produce a colored image.")
     p.add_argument("-P", "--palette", metavar="PALETTE", help="256x256 palette PNG for false color.")
-    p.add_argument("-t", "--start-time", metavar="TIME",
-                   help="Recording start time, RFC 3339 format (not ported yet).")
-    p.add_argument("-T", "--tle", metavar="FILE", help="Load TLE from path (not ported yet).")
+    p.add_argument("-t", "--start-time", metavar="TIME", help="Recording start time, RFC 3339 format.")
+    p.add_argument("-T", "--tle", metavar="FILE", help="Load TLE from path.")
     p.add_argument("-p", "--profile", choices=sorted(PROFILES),
                    help="DSP profile. Default: the settings file's (standard).")
     p.add_argument("--wav-steps", action="store_true",
@@ -99,8 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
         "Also save the raw decoded signal (one float per pixel at 4160 Hz) as .npy; feed it "
         "back as the input to re-process without decoding."))
     p.add_argument("--stream", action="store_true", help="Live decode (not ported yet).")
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="Where to decode: the card (default) or the plain PyTorch path on the CPU.")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help=(
+        "Where to decode or resample: the card (default) or the plain PyTorch path on the CPU."))
     return p
 
 
@@ -109,17 +124,11 @@ def _unported(args) -> str | None:
     if args.input_filename is None:
         return "the GUI (no input file)"
     for flag, name in (
-        (args.resample is not None, "-r"),
         (args.wav_steps, "--wav-steps"),
         (args.export_resample_filtered, "--export-resample-filtered"),
         (args.stream, "--stream"),
         (args.distributed, "--distributed"),
         (args.ingest != "device", f"--ingest {args.ingest}"),
-        (args.map not in (None, "no"), f"-m {args.map}"),
-        (args.rotate == "auto" and not args.rotate_image, "-R auto"),
-        (args.sat is not None, "-s"),
-        (args.start_time is not None, "-t"),
-        (args.tle is not None, "-T"),
         (Path(args.input_filename).is_dir(), "a directory input"),
     ):
         if flag:
@@ -127,11 +136,70 @@ def _unported(args) -> str | None:
     return None
 
 
+def _orbit_settings(args, settings, rotate: Rotate) -> tuple[OrbitSettings | None, str | None]:
+    """``(orbit settings or None, None)`` of a decode, built as
+    ``noaa_apt_tpu/cli.py:231-298`` builds them: time and satellite from
+    the filename (else the file's mtime and NOAA 19), overridden by
+    ``-s`` and ``-t``; ``-T``'s TLE; ``-m``'s map settings with the
+    settings file's colours.  ``(None, message)`` where that CLI prints
+    ``message`` and stops with 0: a bad ``-s``, ``-T``, ``-t`` or ``-m``,
+    or ``-R auto`` or ``-m yes`` without a time and satellite."""
+    sat_name, ref_time = None, None
+    try:
+        ref_time, sat_name = misc.infer_time_sat(settings, args.input_filename)
+    except err.AptError as e:
+        print(f"Unable to determine satellite name and recording time from filename: {e}")
+    if args.sat is not None:
+        if args.sat not in SAT_IDS:
+            return None, "Invalid provided satellite name"
+        sat_name = SAT_IDS[args.sat]
+    custom_tle = None
+    if args.tle is not None:
+        try:
+            custom_tle = Path(args.tle).read_text()
+        except OSError as e:
+            return None, f"Could not open custom TLE file: {e}"
+    if args.start_time is not None:
+        try:
+            t = datetime.fromisoformat(args.start_time)
+            if t.tzinfo is None:
+                # RFC 3339 requires an offset; the reference's
+                # parse_from_rfc3339 rejects naive datetimes too.
+                raise ValueError("missing UTC offset (use e.g. 2020-01-26T01:33:20+00:00)")
+        except ValueError as e:
+            return None, f"Could not parse date and time given: {e}"
+        ref_time = RefTime.start(t)
+    draw_map = None
+    if args.map == "yes":
+        draw_map = MapSettings(
+            # `or` would replace an explicit 0 with the default
+            yaw=args.map_yaw if args.map_yaw is not None else 0.0,
+            hscale=args.map_hscale if args.map_hscale is not None else 1.0,
+            vscale=args.map_vscale if args.map_vscale is not None else 1.0,
+            countries_color=settings.default_countries_color,
+            states_color=settings.default_states_color,
+            lakes_color=settings.default_lakes_color,
+        )
+        # The one-time states.shp download overlaps the decode (geo/states.py).
+        prefetch_states_async()
+    elif args.map not in (None, "no"):
+        return None, "Invalid map argument"
+    if sat_name is None or ref_time is None:
+        if rotate == Rotate.ORBIT:
+            return None, "Can't rotate automatically if no satellite and time is provided"
+        if draw_map is not None:
+            return None, "Can't draw map if no satellite and time is provided"
+        return None, None
+    return OrbitSettings(sat_name=sat_name, ref_time=ref_time, custom_tle=custom_tle,
+                         draw_map=draw_map), None
+
+
 def main(argv=None, report: dict | None = None) -> int:
-    """Decode one WAV (or re-process one ``.npy``) to a PNG; returns the
-    exit code.  ``report``, if given, receives the wall seconds of each
-    step, the decoder's per-stage milliseconds and its ``telemetry``
-    stage (None where the fused telemetry path did not run)."""
+    """Decode one WAV (or re-process one ``.npy``) to a PNG, or resample
+    one WAV (``-r``); returns the exit code.  ``report``, if given,
+    receives the wall seconds of each step (of the whole run for ``-r``),
+    the decoder's per-stage milliseconds and its ``telemetry`` stage (None
+    where the fused telemetry path did not run)."""
     args = build_parser().parse_args(argv)
     level = logging.DEBUG if args.debug else (logging.WARNING if args.quiet else logging.INFO)
     logging.basicConfig(level=level, format="%(levelname)s %(name)s: %(message)s")
@@ -147,8 +215,26 @@ def main(argv=None, report: dict | None = None) -> int:
     log.info("noaa-apt-tpu-torch image decoder version %s on %s", __version__, device)
     settings = cfg.build_settings(cfg.load_de_settings(), args.profile)
 
+    if args.resample is not None:
+        t0 = time.perf_counter()
+        context = Context.resample(lambda p_, d_: log.info("%s", d_))
+        try:
+            resample_tool.resample(context, settings, args.input_filename,
+                                   args.output or "./output.wav", args.resample, device)
+        except err.AptError as e:
+            log.error("%s", e)
+            return 1
+        if report is not None:
+            report["wall_s"] = time.perf_counter() - t0
+        return 0
+
+    out = args.output or "./output.png"
     contrast = CONTRASTS[args.contrast]
     rotate = Rotate.YES if args.rotate_image else ROTATES[args.rotate]
+    orbit, stop = _orbit_settings(args, settings, rotate)
+    if stop is not None:
+        print(stop)
+        return 0
     if not args.sync and contrast.kind in (ContrastKind.TELEMETRY, ContrastKind.HISTOGRAM):
         log.warning("Adjusting contrast without syncing, expect horrible results!")
     context = Context.decode(lambda p_, d_: log.info("%s", d_), Rate(settings.work_rate),
@@ -171,7 +257,7 @@ def main(argv=None, report: dict | None = None) -> int:
             raw = np.load(args.input_filename).astype(np.float32)
             t.append(time.perf_counter())
             t.append(t[-1])
-            img = process(raw, contrast, rotate, color, None, context)
+            img = process(raw, contrast, rotate, color, orbit, context)
         else:
             signal, rate = wav.load_device_ready(args.input_filename)
             t.append(time.perf_counter())
@@ -190,7 +276,7 @@ def main(argv=None, report: dict | None = None) -> int:
                 gray, sync_pos = decoder.decode_render_input(signal, len(signal), rate, *levels)
                 t.append(time.perf_counter())
                 context.status(0.5, "Generating image")
-                img = finish_image(gray, contrast.kind, rotate, color, None, context)
+                img = finish_image(gray, contrast.kind, rotate, color, orbit, context)
             else:
                 raw = decoder.decode(signal, rate, args.sync, context)
                 sync_pos = raw.sync_positions
@@ -198,14 +284,14 @@ def main(argv=None, report: dict | None = None) -> int:
                     np.save(args.raw_out, raw.signal())
                     log.info("Saved raw decoded signal to %s", args.raw_out)
                 t.append(time.perf_counter())
-                img = process(raw, contrast, rotate, color, None, context)
+                img = process(raw, contrast, rotate, color, orbit, context)
         t.append(time.perf_counter())
-        png.write_png(args.output, img)
+        png.write_png(out, img)
         t.append(time.perf_counter())
     except err.AptError as e:
         log.error("%s", e)
         return 1
-    log.info("Saved %s", args.output)
+    log.info("Saved %s", out)
     if report is not None:
         stage_ms = dict(decoder.last_stage_ms) if decoder is not None else {}
         report.update({

@@ -32,3 +32,11 @@ class DeserializeError(AptError):
 
 class InvalidInputError(AptError):
     """Reference ``Error::InvalidInput`` — bad palette/user input."""
+
+
+class FeatureNotAvailableError(AptError):
+    """Reference ``Error::FeatureNotAvailable`` (e.g. a deep-space TLE)."""
+
+
+class RequestError(AptError):
+    """Reference ``Error::Request`` — network (TLE download) failures."""

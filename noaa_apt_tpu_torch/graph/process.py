@@ -1,10 +1,9 @@
 """High-level post-processing orchestration (contrast -> image ->
-false color -> equalize -> rotate).
+false color -> equalize -> map overlay -> rotate).
 
 Behavioral contract: reference ``src/noaa_apt.rs:132-243``
 (``process()``), as ``noaa_apt_tpu/graph/process.py`` ports it.  The map
-overlay and the orbit-based rotation wait for the slice that ports
-``geo/`` and raise here.
+overlay and the orbit-based rotation run on the host (``geo/``).
 """
 
 from __future__ import annotations
@@ -14,17 +13,20 @@ import logging
 import numpy as np
 
 from .. import PX_PER_ROW, err
+from ..geo import tle as tle_mod
+from ..geo.map_overlay import draw_map
+from ..geo.orbit import south_to_north_pass
 from ..post import contrast as ct
 from ..post import processing
 from ..post.telemetry import read_telemetry, telemetry_from_stats
-from ..types import Contrast, ContrastKind, Rotate
+from ..types import Contrast, ContrastKind, OrbitSettings, Rotate
 from .decode import Decoder, DecodeResult
 
 log = logging.getLogger(__name__)
 
 
-def process(signal, contrast_adjustment: Contrast, rotate: Rotate, color=None, orbit=None,
-            context=None) -> np.ndarray:
+def process(signal, contrast_adjustment: Contrast, rotate: Rotate, color=None,
+            orbit: OrbitSettings | None = None, context=None) -> np.ndarray:
     """Decoded signal -> RGBA uint8 image [H, 2080, 4].
 
     ``signal`` may be a flat float array (reference API, e.g. a ``.npy``
@@ -101,15 +103,11 @@ def process(signal, contrast_adjustment: Contrast, rotate: Rotate, color=None, o
 
 
 def finish_image(gray: np.ndarray, kind: ContrastKind, rotate: Rotate, color=None,
-                 orbit=None, context=None) -> np.ndarray:
+                 orbit: OrbitSettings | None = None, context=None) -> np.ndarray:
     """Contrast-mapped u8 rows [H, 2080] -> RGBA image [H, 2080, 4]:
-    colorize, equalize, rotate (the tail of reference ``process()``,
-    noaa_apt.rs:186-243).  Shared by :func:`process` and the fused path
-    (``Decoder.decode_render_input`` produces ``gray``)."""
-    if orbit is not None:
-        raise err.InternalError("orbit settings (map overlay) are not ported yet")
-    if rotate == Rotate.ORBIT:
-        raise err.InternalError("orbit-based rotation is not ported yet")
+    colorize, equalize, overlay, rotate (the tail of reference
+    ``process()``, noaa_apt.rs:186-243).  Shared by :func:`process` and
+    the fused path (``Decoder.decode_render_input`` produces ``gray``)."""
     height = gray.shape[0]
     img = np.empty((height, PX_PER_ROW, 4), dtype=np.uint8)
     img[..., 0] = gray
@@ -123,8 +121,22 @@ def finish_image(gray: np.ndarray, kind: ContrastKind, rotate: Rotate, color=Non
     if kind == ContrastKind.HISTOGRAM:
         processing.histogram_equalization(img, color is not None)
 
+    if orbit is not None and orbit.draw_map is not None:
+        if context is not None:
+            context.status(0.5, "Drawing map")
+        tle = orbit.custom_tle if orbit.custom_tle is not None else tle_mod.get_current_tle()
+        draw_map(img, orbit.ref_time, orbit.draw_map, orbit.sat_name, tle)
+
     if rotate == Rotate.YES:
         if context is not None:
             context.status(0.90, "Rotating output image")
         processing.rotate(img)
+    elif rotate == Rotate.ORBIT:
+        if orbit is not None:
+            if south_to_north_pass(orbit):
+                if context is not None:
+                    context.status(0.90, "Rotating output image")
+                processing.rotate(img)
+        else:
+            log.warning("Can't rotate automatically if no orbit information is provided")
     return img

@@ -8,6 +8,7 @@ must agree under the +-1 / 0.1% rule and the port's finish stage, given
 the JAX package's grey rows, must give the JAX PNG exactly.
 """
 
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
@@ -16,20 +17,29 @@ import torch
 from PIL import Image
 
 from noaa_apt_tpu.cli import inner_main as jax_cli
+from noaa_apt_tpu.geo import states as jstates
 from noaa_apt_tpu.core.profiles import PROFILES as JPROFILES
 from noaa_apt_tpu.graph import decode as jdecode
+from noaa_apt_tpu.graph.process import finish_image as j_finish_image
 from noaa_apt_tpu.graph.process import process as j_process
 from noaa_apt_tpu.io import wav as jwav
 from noaa_apt_tpu.synth import synth_recording
 from noaa_apt_tpu.types import Contrast as JContrast
+from noaa_apt_tpu.types import ContrastKind as JContrastKind
+from noaa_apt_tpu.types import MapSettings as JMapSettings
+from noaa_apt_tpu.types import OrbitSettings as JOrbitSettings
+from noaa_apt_tpu.types import RefTime as JRefTime
 from noaa_apt_tpu.types import Rotate as JRotate
+from noaa_apt_tpu.types import SatName as JSatName
 
 from noaa_apt_tpu_torch import cli
 from noaa_apt_tpu_torch.core.profiles import PROFILES
 from noaa_apt_tpu_torch.graph.decode import Decoder
 from noaa_apt_tpu_torch.graph.process import finish_image, process
 from noaa_apt_tpu_torch.io import png, wav
-from noaa_apt_tpu_torch.types import ColorSettings, ContrastKind, Rotate
+from noaa_apt_tpu_torch.geo import states
+from noaa_apt_tpu_torch.types import (ColorSettings, ContrastKind, MapSettings, OrbitSettings,
+                                      RefTime, Rotate, SatName)
 
 torch.set_num_threads(1)
 
@@ -138,10 +148,8 @@ def test_cli_raw_out_then_npy_matches_jax(tmp_path, pass_wav):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["-R", "auto"], "-R auto"), (["-m", "yes"], "-m yes"), (["-s", "noaa_19"], "-s"),
-    (["-t", "2020-01-26T00:53:20+00:00"], "-t"), (["-T", "tle.txt"], "-T"),
     (["--wav-steps"], "--wav-steps"), (["--export-resample-filtered"], "--export-resample-filtered"),
-    (["-r", "8000"], "-r"), (["--stream"], "--stream"), (["--distributed", "2"], "--distributed"),
+    (["--stream"], "--stream"), (["--distributed", "2"], "--distributed"),
     (["--ingest", "host16"], "--ingest host16"),
 ])
 def test_cli_unported_options_exit_1(tmp_path, caplog, pass_wav, flags, what):
@@ -167,3 +175,138 @@ def test_cli_directory_gui_version_and_debug(tmp_path, caplog, capsys, pass_wav)
     assert report["sync_positions"] == jsync
     assert report["rows"] == jgray.shape[0]
     assert any(r.levelname == "DEBUG" and "Telemetry wedges" in r.message for r in caplog.records)
+
+
+# The pinned Jan-2020 TLE of the JAX package's tests (geo.rs:206-214), and
+# a start time over Bolivia (tests/test_map.py's overlay ink test).
+TEST_TLE = """NOAA 15
+1 25338U 98030A   20028.53684332  .00000010  00000-0  22730-4 0  9996
+2 25338  98.7308  54.2052 0009655 316.5487  43.4931 14.25949056128892
+NOAA 18
+1 28654U 05018A   20028.55430359  .00000064  00000-0  59410-4 0  9998
+2 28654  99.0657  83.5290 0013366 267.3059  92.6583 14.12484618757024
+NOAA 19
+1 33591U 09005A   20028.54874297  .00000001  00000-0  25623-4 0  9996
+2 33591  99.1936  30.2411 0014855 109.6767 250.6008 14.12393428565240"""
+START = "2020-01-26T09:23:20+00:00"
+
+
+@pytest.fixture
+def offline_states(monkeypatch):
+    """The states layer is skipped in both packages without a download:
+    their failure memo is set, and the prefetch runs in the caller's
+    thread (so none is left running past the test)."""
+    monkeypatch.setattr(jstates, "_download_failed", [True])
+    monkeypatch.setattr(states, "_download_failed", [True])
+    monkeypatch.setattr(jstates, "prefetch_states_async", lambda: jstates.get_states_shp())
+    monkeypatch.setattr(cli, "prefetch_states_async", lambda: states.get_states_shp())
+
+
+@pytest.fixture(scope="module")
+def short_pass(tmp_path_factory):
+    """A 40-row pass at 11025 Hz as a 16-bit WAV."""
+    signal, _ = synth_recording(n_rows=40, sample_rate=RATE, noise_db=20.0, seed=3)
+    path = tmp_path_factory.mktemp("orbit") / "pass.wav"
+    wav.write_wav(path, signal, wav.WavSpec(1, RATE, 16, "int"))
+    return path
+
+
+def _orbit(flags):
+    """The orbit settings the CLIs build from ``ORBIT_FLAGS`` on a name
+    that matches no filename format: NOAA 19, the ``-t`` time."""
+    t = datetime.fromisoformat(START)
+    draw = MapSettings() if "-m" in flags else None
+    jdraw = JMapSettings() if "-m" in flags else None
+    return (OrbitSettings(SatName.NOAA_19, RefTime.start(t), TEST_TLE, draw),
+            JOrbitSettings(JSatName.NOAA_19, JRefTime.start(t), TEST_TLE, jdraw))
+
+
+ORBIT_CASES = {
+    "map_auto_rotate": (["-m", "yes", "-R", "auto"], "percent"),
+    "map_sat_histogram": (["-m", "yes", "-s", "noaa_19", "-c", "histogram"], "histogram"),
+    "auto_rotate_only": (["-R", "auto"], "percent"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORBIT_CASES))
+def test_cli_orbit_options_match_jax(tmp_path, offline_states, short_pass, case):
+    """``-m yes``, ``-R auto`` and ``-s`` with ``-T``/``-t`` on a 40-row
+    pass against the JAX CLI: grey rows by the +-1 / 0.1% rule, and each
+    PNG equal to its package's grey rows finished with the same orbit
+    settings (overlay, then the rotation the pass direction asks for)."""
+    flags, kind = ORBIT_CASES[case]
+    Path("tle.txt").write_text(TEST_TLE)
+    flags = [*flags, "-T", "tle.txt", "-t", START]
+    assert jax_cli([str(short_pass), "-o", "jax.png", "-q", *flags]) == 0
+    assert cli.main([str(short_pass), "-o", "port.png", "--device", "cpu", "-q", *flags]) == 0
+    got, want = png.read_png("port.png"), np.asarray(Image.open("jax.png"))
+    assert got.shape == want.shape and got.shape[1:] == (2080, 4)
+    o, jo = _orbit(flags)
+    pgray, jgray = _grays(short_pass, kind, True, False)
+    _u8_close(pgray, jgray)
+    np.testing.assert_array_equal(finish_image(pgray, ContrastKind(kind), Rotate.ORBIT if "auto" in flags
+                                               else Rotate.NO, None, o), got)
+    np.testing.assert_array_equal(
+        j_finish_image(jgray, JContrastKind(kind), JRotate.ORBIT if "auto" in flags else JRotate.NO,
+                       None, jo), want)
+    if "-m" in flags:
+        assert (np.abs(got[..., 0].astype(np.int16) - got[..., 2]) > 10).sum() > 100  # map ink
+
+
+def test_cli_orbit_options_on_npy_match_jax(tmp_path, offline_states, short_pass):
+    """A ``.npy`` re-processed with the map and ``-R auto`` (the host
+    ``process()`` path) gives the JAX CLI's PNG exactly."""
+    Path("tle.txt").write_text(TEST_TLE)
+    assert jax_cli([str(short_pass), "-o", "jax.png", "-q", "--raw-out", "raw.npy"]) == 0
+    flags = ["-m", "yes", "-R", "auto", "-T", "tle.txt", "-t", START, "-q"]
+    assert jax_cli(["raw.npy", "-o", "j.png", *flags]) == 0
+    assert cli.main(["raw.npy", "-o", "p.png", "--device", "cpu", *flags]) == 0
+    np.testing.assert_array_equal(png.read_png("p.png"), np.asarray(Image.open("j.png")))
+
+
+BAD = {
+    "map": (["-m", "maybe"], "Invalid map argument"),
+    "sat": (["-s", "noaa_20"], "Invalid provided satellite name"),
+    "time": (["-t", "yesterday"], "Could not parse date and time given"),
+    "naive_time": (["-t", "2020-01-26T09:23:20"], "Could not parse date and time given"),
+    "tle": (["-T", "missing_tle.txt"], "Could not open custom TLE file"),
+    "no_time_for_auto": (["-R", "auto"], "Can't rotate automatically if no satellite and time"),
+    "no_time_for_map": (["-m", "yes"], "Can't draw map if no satellite and time"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD))
+def test_cli_bad_orbit_options_match_jax(tmp_path, capsys, offline_states, short_pass, case):
+    """A bad ``-m``, ``-s``, ``-t`` or ``-T``, and ``-R auto`` or ``-m yes``
+    where no time and satellite can be found (an input without metadata):
+    the JAX CLI's messages and exit code 0, and no PNG."""
+    flags, message = BAD[case]
+    wav_in = str(short_pass) if case.startswith(("map", "sat", "time", "naive", "tle")) else "gone.wav"
+    assert jax_cli([wav_in, "-o", "jax.png", *flags]) == 0
+    jlines = [ln for ln in capsys.readouterr().out.splitlines()
+              if "decoder version" not in ln and "Saving default settings" not in ln]
+    assert cli.main([wav_in, "-o", "port.png", "--device", "cpu", *flags]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == jlines and message in lines[-1]
+    assert not Path("port.png").exists() and not Path("jax.png").exists()
+
+
+@pytest.mark.parametrize("out", [None, "x.wav"])
+def test_cli_resample_matches_jax(tmp_path, out):
+    """``-r 12480`` with and without ``-o`` (``./output.wav``) against the
+    JAX CLI: the same rate and length, int16 within 1 LSB."""
+    signal, _ = synth_recording(n_rows=6, sample_rate=RATE, seed=4)
+    wav.write_wav("in.wav", signal, wav.WavSpec(1, RATE, 16, "int"))
+    Path("jax").mkdir()
+    o = ["-o", out] if out else []
+    assert jax_cli(["in.wav", "-r", "12480", "-q", *(["-o", f"jax/{out}"] if out else [])]) == 0
+    if not out:
+        Path("output.wav").rename("jax/output.wav")
+    assert cli.main(["in.wav", "-r", "12480", "--device", "cpu", "-q", *o]) == 0
+    name = out or "output.wav"
+    got, spec = wav.load_wav(name, raw_int16=True)
+    want, jspec = jwav.load_wav(Path("jax") / name, raw_int16=True)
+    assert (spec.sample_rate, jspec.sample_rate) == (12480, 12480) and got.shape == want.shape
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    assert not Path("output.png").exists()
+    assert cli.main(["gone.wav", "-r", "12480", "--device", "cpu", "-q"]) == 1

@@ -301,3 +301,55 @@ def test_cuda_select_overflow_raises(cuda_device):
     corr = torch.zeros((1, 50_000), device=cuda_device)
     with pytest.raises(RuntimeError, match="max_peaks"):
         select_peaks(corr, [50_000], 2080, 1664, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rin,rout", [(48000, 11025), (11025, 48000), (24960, 12480)])
+def test_cuda_resample_tool_matches_cpu(cuda_device, tmp_path, rin, rout):
+    """The WAV -> WAV tool on the card (K1 "phase" on its float32 samples)
+    writes the same WAV as on the CPU: the kernel is bit-equal to its
+    twin."""
+    from noaa_apt_tpu_torch.graph import resample_tool
+    from noaa_apt_tpu_torch.io import config as cfg
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.io.context import Context
+
+    signal, _ = synth_recording(n_rows=8, sample_rate=rin, seed=1)
+    wav.write_wav(tmp_path / "in.wav", signal, wav.WavSpec(1, rin, 16, "int"))
+    rs.polyphase_resample.launches = 0
+    for dev, name in ((cuda_device, "gpu.wav"), ("cpu", "cpu.wav")):
+        resample_tool.resample(Context.resample(), cfg.Settings(), tmp_path / "in.wav",
+                               tmp_path / name, rout, device=dev)
+        if dev == cuda_device:
+            assert rs.polyphase_resample.last_variant == "phase"
+    assert rs.polyphase_resample.launches == 1
+    assert (tmp_path / "gpu.wav").read_bytes() == (tmp_path / "cpu.wav").read_bytes()
+
+
+@pytest.mark.cuda
+def test_cuda_cli_map_and_auto_rotate_match_cpu(cuda_device, tmp_path, monkeypatch):
+    """``-m yes -R auto`` with a TLE file and a start time: the card's PNG
+    is the CPU's within +-1 on 0.1% of pixels (the overlay is host work on
+    the same grey rows)."""
+    from noaa_apt_tpu_torch import cli
+    from noaa_apt_tpu_torch.geo import states
+    from noaa_apt_tpu_torch.io import png, wav
+
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path / "cfg"))
+    monkeypatch.setattr(states, "_download_failed", [True])
+    monkeypatch.setattr(cli, "prefetch_states_async", lambda: states.get_states_shp())
+    signal, _ = synth_recording(n_rows=60, sample_rate=11025, noise_db=20.0, seed=3)
+    wav.write_wav(tmp_path / "pass.wav", signal, wav.WavSpec(1, 11025, 16, "int"))
+    (tmp_path / "tle.txt").write_text(
+        "NOAA 19\n"
+        "1 33591U 09005A   20028.54874297  .00000001  00000-0  25623-4 0  9996\n"
+        "2 33591  99.1936  30.2411 0014855 109.6767 250.6008 14.12393428565240\n")
+    flags = ["-m", "yes", "-R", "auto", "-T", str(tmp_path / "tle.txt"), "-t",
+             "2020-01-26T09:23:20+00:00", "-q"]
+    for dev in ("cuda", "cpu"):
+        assert cli.main([str(tmp_path / "pass.wav"), "-o", str(tmp_path / f"{dev}.png"),
+                         "--device", dev, *flags]) == 0
+    got, want = png.read_png(tmp_path / "cuda.png"), png.read_png(tmp_path / "cpu.png")
+    assert got.shape == want.shape
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert d.max(initial=0) <= 1 and (d > 0).mean() <= 1e-3

@@ -270,25 +270,49 @@ REF_ROTATES = {"auto": JRotate.ORBIT, "yes": JRotate.YES, "no": JRotate.NO}
 def test_cli_takes_reference_spellings(tmp_path, caplog, telemetry_wav, option, name):
     """Each spelling of the reference's ``-c`` and ``-R`` maps to the
     reference's value (``percent`` and ``minmax`` are the port's aliases of
-    ``98_percent`` and ``disable``); every contrast decodes, and ``-R
-    auto`` (orbit-based, not ported yet) exits 1 with "not ported yet"."""
+    ``98_percent`` and ``disable``), and every one decodes; ``-R auto``
+    (orbit-based: the file's mtime and NOAA 19, here with a ``-T`` TLE so
+    that nothing is downloaded) rotates the image as the pass direction
+    asks."""
     from noaa_apt_tpu_torch import cli
 
     if option == "-c":
         got = cli.CONTRASTS[name]
         want = REF_CONTRASTS[{"percent": "98_percent", "minmax": "disable"}.get(name, name)]
         assert (got.kind.value, got.percent) == (want.kind.value, want.percent)
-        ported = True
     else:
         assert cli.ROTATES[name].value == REF_ROTATES[name].value
-        ported = name != "auto"
     png_path = tmp_path / "out.png"
-    rc = cli.main([str(telemetry_wav), "-o", str(png_path), "--device", "cpu", "-q", option, name])
-    if ported:
-        assert rc == 0 and np.asarray(Image.open(png_path)).shape[1] == 2080
-    else:
-        assert rc == 1 and not png_path.exists()
-        assert f"{option} {name} is not ported yet" in caplog.text
+    tle = tmp_path / "tle.txt"
+    tle.write_text(TEST_TLE)
+    extra = ["-T", str(tle)] if name == "auto" else []
+    rc = cli.main([str(telemetry_wav), "-o", str(png_path), "--device", "cpu", "-q", option, name,
+                   *extra])
+    assert rc == 0 and np.asarray(Image.open(png_path)).shape[1] == 2080
+    if name == "auto":
+        from datetime import datetime, timezone
+
+        from noaa_apt_tpu_torch.geo.orbit import south_to_north_pass
+        from noaa_apt_tpu_torch.types import OrbitSettings, RefTime, SatName
+
+        mtime = datetime.fromtimestamp(int(telemetry_wav.stat().st_mtime), tz=timezone.utc)
+        turn = south_to_north_pass(OrbitSettings(SatName.NOAA_19, RefTime.end(mtime), TEST_TLE))
+        fixed = tmp_path / "fixed.png"
+        assert cli.main([str(telemetry_wav), "-o", str(fixed), "--device", "cpu", "-q", "-R",
+                         "yes" if turn else "no"]) == 0
+        np.testing.assert_array_equal(np.asarray(Image.open(png_path)), np.asarray(Image.open(fixed)))
+
+
+# The pinned Jan-2020 TLE of the JAX package's tests (geo.rs:206-214).
+TEST_TLE = """NOAA 15
+1 25338U 98030A   20028.53684332  .00000010  00000-0  22730-4 0  9996
+2 25338  98.7308  54.2052 0009655 316.5487  43.4931 14.25949056128892
+NOAA 18
+1 28654U 05018A   20028.55430359  .00000064  00000-0  59410-4 0  9998
+2 28654  99.0657  83.5290 0013366 267.3059  92.6583 14.12484618757024
+NOAA 19
+1 33591U 09005A   20028.54874297  .00000001  00000-0  25623-4 0  9996
+2 33591  99.1936  30.2411 0014855 109.6767 250.6008 14.12393428565240"""
 
 
 # -- telemetry contrast -------------------------------------------------------

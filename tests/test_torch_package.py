@@ -43,7 +43,11 @@ def test_port_never_loads_jax_or_the_jax_package():
     mods = _port_modules()
     assert {"noaa_apt_tpu_torch.io.config", "noaa_apt_tpu_torch.io.context",
             "noaa_apt_tpu_torch.post.telemetry", "noaa_apt_tpu_torch.post.imageext",
-            "noaa_apt_tpu_torch.post.palette"} <= set(mods)
+            "noaa_apt_tpu_torch.post.palette", "noaa_apt_tpu_torch.io.misc",
+            "noaa_apt_tpu_torch.graph.debug", "noaa_apt_tpu_torch.graph.resample_tool",
+            *(f"noaa_apt_tpu_torch.geo.{m}" for m in ("geometry", "sgp4", "tle", "orbit",
+                                                       "shapefile", "states", "map_overlay"))
+            } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for name in {mods!r}:\n"
@@ -63,6 +67,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|noaa_apt_tpu)(?:\.|\s|$)", re.
 def test_source_scan_finds_no_jax_imports():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert {PORT / "geo" / "map_overlay.py", PORT / "geo" / "sgp4.py", PORT / "io" / "misc.py",
+            PORT / "graph" / "debug.py", PORT / "graph" / "resample_tool.py"} <= set(files)
     offenders = [str(p.relative_to(ROOT)) for p in files if _IMPORT.search(p.read_text())]
     assert offenders == []
 
@@ -147,13 +153,18 @@ def test_wav_loader_keeps_int16(tmp_path):
     np.testing.assert_array_equal(f, x.astype(np.float32))
 
 
-def test_finish_image_refuses_unported_features():
-    """Histogram equalization and false colour finish the image; the
-    orbit-based features (map overlay, ``Rotate.ORBIT``) still raise."""
-    from noaa_apt_tpu_torch.err import InternalError
+def test_finish_image_refuses_unported_features(caplog):
+    """Histogram equalization and false colour finish the image, and so
+    do the orbit branches: ``Rotate.ORBIT`` without orbit settings
+    refuses to rotate, with the reference's warning, and orbit settings
+    without a map draw nothing (tests/test_torch_geo.py holds the
+    overlay and the orbit rotation against the JAX package)."""
+    from datetime import datetime, timezone
+
     from noaa_apt_tpu_torch.graph.process import finish_image
     from noaa_apt_tpu_torch.io.config import res_path
-    from noaa_apt_tpu_torch.types import ColorSettings, ContrastKind, Rotate
+    from noaa_apt_tpu_torch.types import (ColorSettings, ContrastKind, OrbitSettings, RefTime,
+                                          Rotate, SatName)
 
     gray = np.tile(np.arange(2080, dtype=np.int64) % 251, (3, 1)).astype(np.uint8)
     assert finish_image(gray, ContrastKind.PERCENT, Rotate.NO).shape == (3, 2080, 4)
@@ -163,15 +174,17 @@ def test_finish_image_refuses_unported_features():
     fc = finish_image(gray, ContrastKind.PERCENT, Rotate.NO, color)
     assert (fc[:, 86:995, 0] != fc[:, 86:995, 2]).any()  # channel A is coloured
     np.testing.assert_array_equal(fc[:, 1040:, 0], gray[:, 1040:])
-    for kwargs in ({"kind": ContrastKind.PERCENT, "rotate": Rotate.ORBIT},
-                   {"kind": ContrastKind.PERCENT, "rotate": Rotate.NO, "orbit": object()}):
-        with pytest.raises(InternalError, match="not ported yet"):
-            finish_image(gray, **kwargs)
+    plain = finish_image(gray, ContrastKind.PERCENT, Rotate.NO)
+    np.testing.assert_array_equal(finish_image(gray, ContrastKind.PERCENT, Rotate.ORBIT), plain)
+    assert "Can't rotate automatically if no orbit information is provided" in caplog.text
+    no_map = OrbitSettings(SatName.NOAA_19, RefTime.start(datetime(2020, 1, 26, tzinfo=timezone.utc)))
+    np.testing.assert_array_equal(finish_image(gray, ContrastKind.PERCENT, Rotate.NO, orbit=no_map),
+                                  plain)
 
 
 def test_port_ships_its_own_resources(monkeypatch):
-    """The palettes resolve inside the port's package (and are package
-    data), not in ``noaa_apt_tpu/res``."""
+    """The palettes and shapefiles resolve inside the port's package (and
+    are package data), not in ``noaa_apt_tpu/res``."""
     import tomllib
 
     from noaa_apt_tpu_torch.io.config import res_path
@@ -179,5 +192,6 @@ def test_port_ships_its_own_resources(monkeypatch):
     monkeypatch.delenv("NOAA_APT_RES_DIR", raising=False)
     assert res_path() == PORT / "res"
     assert len(list(res_path("palettes").glob("*.png"))) == 22
+    assert sorted(p.name for p in res_path("shapefiles").glob("*.shp")) == ["countries.shp", "lakes.shp"]
     data = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"]
-    assert "res/palettes/*.png" in data["noaa_apt_tpu_torch"]
+    assert {"res/palettes/*.png", "res/shapefiles/*.shp"} <= set(data["noaa_apt_tpu_torch"])
