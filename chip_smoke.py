@@ -58,7 +58,29 @@ Phases, one JSON line each (``{"phase": ...}``):
    ``torch.equal`` to its twin on the card and timed as in phase 3
    (beside ``F.conv1d``); the written WAV's length, rate and mtime;
 8. ``select_stage`` — the decoder's select stage (K3 and its one fetch),
-   median of five decodes of the 48 kHz pass, beside K3's own time.
+   median of five decodes of the 48 kHz pass, beside K3's own time;
+9. ``unpack`` — kernel K4 (the host16c codec's decoder) ``torch.equal``
+   to its plain twin on the 48 kHz pass's sealed buffer (built by the
+   port's ``prepare_work``; its decode is also the host16 payload), on a
+   pass-length stream that forces escape rows (a quiet carrier with
+   full-scale noise bursts) and on a corrupt buffer (random words, unique
+   escape indices, negative and out of range); timed as in phase 3, with
+   the bound (bytes), ``w_lo``, the escape count and the sealed bytes;
+10. ``ingest_path`` — the CLI on the 48 kHz pass with ``--ingest device``,
+   ``host``, ``host16``, ``host16c`` and ``host8``, and with ``host16c``
+   on the 11025 Hz pass: per run the wall, load, ``ingest_s`` (the host
+   C++ resample, quantize, pack and, for host16c, the upload),
+   ``payload_bytes``, the upload's host-clock ms, ``stage_ms`` and the
+   launches (counters set to 0 just before each run and read just
+   after): K1 0 on every host mode, K4 1 on host16c; host16c's PNG and
+   sync list equal host16's; the count of sync positions that differ
+   from the device-ingest run is printed, not asserted;
+11. ``batch_path`` — B = 4 48 kHz passes of three lengths in one bucket
+   and a too-short one, through ``decode_render_batch`` over host16
+   payloads, the same over host16c payloads, and
+   ``decode_render_input_batch``: one K3 launch per batch, every live
+   member byte-equal to its unbatched render, the short one an error
+   entry; ms per pass beside the unbatched renders'.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -554,15 +576,17 @@ class _Messages(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-ALL_ONCE = {"polyphase_resample": 1, "demod_fir_corr": 1, "select_peaks": 1}
+ALL_ONCE = {"polyphase_resample": 1, "demod_fir_corr": 1, "select_peaks": 1, "unpack_sealed": 0}
 
 
 def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k1_variant: str | None,
-                    flags: tuple = (), expect: dict = ALL_ONCE, label: str = "98_percent") -> dict:
+                    flags: tuple = (), expect: dict = ALL_ONCE, label: str = "98_percent",
+                    phase: str = "main_path") -> dict:
     """One CLI run, with the launch counters set to 0 just before and read
     just after; raises unless each kernel launched ``expect`` times, K1 in
-    ``k1_variant``, and the PNG holds the pass's rows.  Returns the CLI's
-    report with the launches and the telemetry channel names it logged."""
+    ``k1_variant``, and the PNG holds the pass's rows.  Emits a ``phase``
+    line and returns the CLI's report with the launches and the telemetry
+    channel names it logged."""
     import numpy as np
 
     from noaa_apt_tpu_torch import cli, ops
@@ -599,11 +623,13 @@ def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k
     if width != 2080 or height != rows:
         raise AssertionError(f"PNG is {width}x{height}, expected 2080x{rows}")
     channels = [m for m in names.messages if m.startswith("Channel A:")]
-    emit("main_path", rate=rate, run=label, flags=list(flags), rows=rows, launches=launches,
+    emit(phase, rate=rate, run=label, flags=list(flags), rows=rows, launches=launches,
          k1_variant=polyphase_resample.last_variant if k1_variant else None,
          wall_s=report["wall_s"], load_s=report["load_s"], decode_s=report["decode_s"],
-         finish_s=report["finish_s"], save_s=report["save_s"], stage_ms=report["stage_ms"],
-         telemetry_ms=report["telemetry_ms"], channels=channels, sync_spacing=spacing)
+         finish_s=report["finish_s"], save_s=report["save_s"], ingest_s=report["ingest_s"],
+         payload_bytes=report["payload_bytes"], upload_host_ms=report["upload_host_ms"],
+         stage_ms=report["stage_ms"], telemetry_ms=report["telemetry_ms"], channels=channels,
+         sync_spacing=spacing)
     return {**report, "launches": launches, "channels": channels}
 
 
@@ -627,7 +653,7 @@ def main_path_runs(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr:
     run(wav48, "histogram", 48000, "block", "-c", "histogram")
     run(wav48, "false_color", 48000, "block", "-F")
     run(wav48, "no_sync", 48000, "block", "--no-sync",
-        expect={"polyphase_resample": 1, "demod_fir_corr": 1, "select_peaks": 0})
+        expect={**ALL_ONCE, "select_peaks": 0})
     raw = tmp / "raw.npy"
     run(wav48, "raw_out", 48000, "block", "--raw-out", str(raw))
     run(raw, "npy", 48000, None, expect={k: 0 for k in ALL_ONCE})
@@ -715,7 +741,7 @@ def resample_tool_phase(torch, dev, tmp: Path, runs, k1_variant: str | None = "p
         variant = rs.polyphase_resample.last_variant
         if rc != 0:
             raise AssertionError(f"-r {rout} on the {rin} Hz pass returned {rc}")
-        if launches != {"polyphase_resample": 1, "demod_fir_corr": 0, "select_peaks": 0}:
+        if launches != {"polyphase_resample": 1, "demod_fir_corr": 0, "select_peaks": 0, "unpack_sealed": 0}:
             raise AssertionError(f"launches of -r {rout} on the {rin} Hz pass: {launches}")
         if k1_variant is not None and variant != k1_variant:
             raise AssertionError(f"-r {rout} on the {rin} Hz pass ran K1 {variant}, not {k1_variant}")
@@ -757,6 +783,184 @@ def select_stage_phase(wav_path: Path, k3_ms: float) -> None:
     stage = statistics.median(ms)
     emit("select_stage", rate=rate.hz, decodes=DECODES, stage_ms=stage, k3_ms=k3_ms,
          over_k3_ms=stage - k3_ms)
+
+
+INT32_OPS_PER_S = 16.7e12  # H100 SXM: 64 INT32 lanes an SM (half the FP32 lanes) x 132 SMs x 1.98 GHz
+
+
+def unpack_case(torch, dev, buf, nb: int, w_lo: int, n_esc_pad: int, coeff: int, label: str,
+                want_prefix=None) -> dict:
+    """K4 on the sealed words ``buf`` (int32, host) against its plain twin
+    on the card, timed; with ``want_prefix`` (int16, host) also the
+    decode's first samples against it.  Returns the record of this case."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch.ops.pack import unpack_sealed, unpack_sealed_plain
+
+    b = torch.from_numpy(buf).to(dev)
+    k4 = lambda: unpack_sealed(b, nb, w_lo, n_esc_pad, coeff)  # noqa: E731
+    k4p = lambda: unpack_sealed_plain(b, nb, w_lo, n_esc_pad, coeff)  # noqa: E731
+    got = k4()
+    err = assert_equal(torch, f"unpack_sealed@{label}", got, k4p())
+    if want_prefix is not None and not np.array_equal(got[: len(want_prefix)].cpu().numpy(), want_prefix):
+        raise AssertionError(f"unpack_sealed@{label}: the decode is not the encoder's input")
+    # Each sealed word read once, each sample written once; 4 int32 ops a
+    # sample (multiply, shift, subtract, add) for the recurrence.
+    n_out = nb * 128
+    bnd, by = bound(buf.nbytes + n_out * 2, 0)
+    t_ops = 4 * n_out / INT32_OPS_PER_S * 1e3
+    if t_ops > bnd:
+        bnd, by = t_ops, "operations"
+    return dict(max_abs_err=err, ms=time_ms(torch, k4), device_ms=device_ms(torch, k4),
+                plain_ms=time_ms(torch, k4p, reps=3, warmup=1, batch=1), bound_ms=bnd, bound_by=by,
+                library_ms=None, w_lo=w_lo, n_esc_pad=n_esc_pad, sealed_bytes=int(buf.nbytes),
+                shape=f"{label}: i32[{buf.shape[0]}] -> i16[{n_out}], nb={nb} w_lo={w_lo} n_esc_pad={n_esc_pad}")
+
+
+def unpack_phase(torch, dev, wav48: Path) -> dict:
+    """K4 on the 48 kHz pass's sealed buffer (the port's ``prepare_work``),
+    on a pass-length stream with escape rows, and on a corrupt buffer;
+    returns the pass's record."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph.decode import Decoder, PackedWorkPayload, pad_bucket
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.native import pack_work_i16_native
+    from noaa_apt_tpu_torch.ops import pack as pk
+
+    signal, rate = wav.load_device_ready(wav48)
+    dec16 = Decoder(STANDARD, device="cpu", ingest="host16")
+    plain = dec16.prepare_work(signal, rate, to_device=True)
+    decc = Decoder(STANDARD, ingest="host16c")
+    t0 = time.perf_counter()
+    payload = decc.prepare_work(signal, rate, to_device=True)
+    prepare_s = time.perf_counter() - t0
+    if not isinstance(payload, PackedWorkPayload):
+        raise AssertionError("host16c shipped the plain i16 payload for the 48 kHz pass")
+    rec = unpack_case(torch, dev, payload.buf.cpu().numpy(), payload.nb, payload.w_lo, payload.n_esc_pad,
+                      payload.coeff, "48000/standard pass", want_prefix=plain.data.numpy())
+    n_esc = int((payload.buf[payload.nb : payload.nb + payload.n_esc_pad] < payload.nb).sum())
+    emit("unpack", name="unpack_sealed", bit_equal=True, n_esc=n_esc, work_true=payload.work_true,
+         prepare_s=prepare_s, upload_host_ms=decc.last_upload["host_ms"],
+         plain_i16_bytes=int(plain.data.numel() * 2), **rec)
+
+    # Escapes: a quiet carrier with full-scale noise bursts, at pass length.
+    n = payload.work_true
+    rng = np.random.default_rng(7)
+    x = (300 * np.sin(2 * np.pi * 2400 / STANDARD.work_rate * np.arange(n))).astype(np.int16)
+    for start in range(40_000, n - 1024, 97_000):
+        x[start : start + 600] = rng.integers(-32768, 32768, 600)
+    x[-500:] = 0
+    pw = pack_work_i16_native(x, STANDARD.work_rate)
+    n_esc_pad = pad_bucket(max(4, len(pw.esc_idx)))
+    sealed = pk.seal_packed(pw, n_esc_pad).view(np.int32)
+    esc = unpack_case(torch, dev, sealed, pw.nb, pw.w_lo, n_esc_pad, pw.coeff, "escape bursts", want_prefix=x)
+    emit("unpack", name="unpack_sealed", bit_equal=True, n_esc=len(pw.esc_idx), **esc)
+
+    # Corrupt: random words; unique escape indices, negative and out of range.
+    nb, w_lo, n_esc_pad = payload.nb, 13, 64
+    words = rng.integers(0, 2**32, pk.sealed_len(nb, w_lo, n_esc_pad), dtype=np.uint32)
+    idx = rng.choice(np.arange(-2 * nb, 2 * nb), n_esc_pad, replace=False).astype(np.int32)
+    words[nb : nb + n_esc_pad] = idx.view(np.uint32)
+    bad = unpack_case(torch, dev, words.view(np.int32), nb, w_lo, n_esc_pad, payload.coeff, "corrupt")
+    emit("unpack", name="unpack_sealed", bit_equal=True, negative_indices=int((idx < 0).sum()),
+         dropped_indices=int(((idx < -nb) | (idx >= nb)).sum()), **bad)
+    return rec
+
+
+INGEST_MODES = ("host", "host16", "host16c", "host8")
+
+
+def ingest_path_phase(torch, tmp: Path, wav48: Path, wav11: Path, spr: int) -> dict:
+    """The CLI with each ``--ingest`` mode on the 48 kHz pass (and the
+    device ingest beside them), host16c also on the 11025 Hz pass; returns
+    the launches of the 48 kHz host16c run."""
+    from noaa_apt_tpu_torch.io import png
+
+    reports = {}
+    for mode in ("device", *INGEST_MODES):
+        expect = dict(ALL_ONCE) if mode == "device" else {
+            **ALL_ONCE, "polyphase_resample": 0, "unpack_sealed": int(mode == "host16c")}
+        reports[mode] = main_path_phase(torch, wav48, tmp / f"ingest_{mode}.png", 48000, spr,
+                                        "block" if mode == "device" else None,
+                                        ("-q", "--ingest", mode), expect=expect, label=f"ingest {mode}",
+                                        phase="ingest_path")
+    main_path_phase(torch, wav11, tmp / "ingest_host16c_11025.png", 11025, spr, None,
+                    ("-q", "--ingest", "host16c"),
+                    expect={**ALL_ONCE, "polyphase_resample": 0, "unpack_sealed": 1},
+                    label="ingest host16c", phase="ingest_path")
+    if reports["host16c"]["sync_positions"] != reports["host16"]["sync_positions"]:
+        raise AssertionError("host16c's sync list differs from host16's")
+    if not (png.read_png(tmp / "ingest_host16c.png") == png.read_png(tmp / "ingest_host16.png")).all():
+        raise AssertionError("host16c's PNG differs from host16's")
+    ref = reports["device"]["sync_positions"]
+    diff = {}
+    for mode in INGEST_MODES:
+        got = reports[mode]["sync_positions"]
+        diff[mode] = sum(a != b for a, b in zip(got, ref)) + abs(len(got) - len(ref))
+    emit("ingest_sync_vs_device", host16c_equals_host16=True, differing_sync_positions=diff)
+    return reports["host16c"]["launches"]
+
+
+def batch_path_phase(torch, wav48: Path) -> dict:
+    """B = 4 48 kHz passes (three lengths in one bucket, one too short)
+    through both batched renders; returns the K3 launches per batch."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch import err, ops
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph.decode import Decoder
+    from noaa_apt_tpu_torch.io import wav
+
+    signal, rate = wav.load_device_ready(wav48)
+    signal = np.array(signal)
+    # Members 0, 1, 3 share one work bucket; member 2 (8 rows) is under the 10-row guard.
+    sigs = [signal, signal[:-4800], signal[: 48000 * 4], signal[:-9600]]
+    k3 = {}
+    for name, mode in (("render_batch host16", "host16"), ("render_batch host16c", "host16c"),
+                       ("render_input_batch", "device")):
+        dec = Decoder(STANDARD, ingest=mode)
+        if mode == "device":
+            run = lambda: dec.decode_render_input_batch(sigs, [len(s) for s in sigs], rate)  # noqa: E731
+            singles = [lambda s=s: dec.decode_render_input(s, len(s), rate) for s in sigs]
+            ingest_s = 0.0
+        else:
+            t0 = time.perf_counter()
+            payloads = [dec.prepare_work(s, rate, to_device=(mode == "host16c")) for s in sigs]
+            ingest_s = time.perf_counter() - t0
+            run = lambda: dec.decode_render_batch(payloads)  # noqa: E731
+            singles = [lambda p=p: dec.decode_render(p) for p in payloads]
+        ops.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        stage_ms = dict(dec.last_stage_ms)
+        if launches["select_peaks"] != 1:
+            raise AssertionError(f"{name}: K3 launched {launches['select_peaks']} times for one batch")
+        if not isinstance(got[2], err.InternalError) or "too short" not in str(got[2]):
+            raise AssertionError(f"{name}: the short member gave {got[2]!r}, not the too-short error")
+        for b in (0, 1, 3):
+            gray, sync_pos = singles[b]()
+            if got[b][1] != sync_pos or not np.array_equal(got[b][0], gray):
+                raise AssertionError(f"{name}: member {b} differs from its unbatched render")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            walls.append(time.perf_counter() - t0)
+        singles_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for b in (0, 1, 3):
+                singles[b]()
+            singles_s.append(time.perf_counter() - t0)
+        emit("batch_path", run=name, batch=len(sigs), live=3, launches=launches, stage_ms=stage_ms,
+             members_equal_unbatched=True, short_member_error=str(got[2]), ingest_s=ingest_s,
+             ms_per_pass=statistics.median(walls) * 1e3 / 3,
+             unbatched_ms_per_pass=statistics.median(singles_s) * 1e3 / 3)
+        k3[name] = launches["select_peaks"]
+    return k3
 
 
 def main() -> int:
@@ -823,17 +1027,23 @@ def main() -> int:
         tool = resample_tool_phase(torch, dev, tmp, ((wav48, 48000, 11025), (wav11, 11025, 48000),
                                                      (wav25, 24960, 12480)))
         select_stage_phase(wav48, rec["select_peaks"]["ms"])
+        rec["unpack_sealed"] = unpack_phase(torch, dev, wav48)
+        ingest_launches = ingest_path_phase(torch, tmp, wav48, wav11, spr)
+        batch_k3 = batch_path_phase(torch, wav48)
 
     sources = {
         "polyphase_resample": ("noaa_apt_tpu_torch/csrc/resample.cu", "noaa_apt_tpu/ops/resample.py:186"),
         "demod_fir_corr": ("noaa_apt_tpu_torch/csrc/stage.cu", "noaa_apt_tpu/ops/pallas_stage.py:161"),
         "select_peaks": ("noaa_apt_tpu_torch/csrc/select.cu", "noaa_apt_tpu/ops/pallas_select.py:214"),
+        "unpack_sealed": ("noaa_apt_tpu_torch/csrc/unpack.cu", "noaa_apt_tpu/ops/pack.py:246"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rec[name]
+        # K4's path is the host16c ingest run; the others', the default CLI run.
+        path_launches = ingest_launches if name == "unpack_sealed" else launches
         entry = {"name": name, "ok": True, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "launches": path_launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"]}
         if name == "polyphase_resample":
@@ -845,6 +1055,9 @@ def main() -> int:
         if name == "select_peaks":
             entry.update({key: r[key] for key in ("summary_ms", "walk_ms", "jumps", "walk_steps",
                                                   "ns_per_jump")})
+            entry["batch_launches"] = batch_k3  # pallas_select.py:237's path: one per batch
+        if name == "unpack_sealed":
+            entry.update({key: r[key] for key in ("device_ms", "w_lo", "n_esc_pad", "sealed_bytes")})
         kernels.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

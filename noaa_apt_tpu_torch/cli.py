@@ -6,19 +6,22 @@ contrast (``-c``), false colour (``-F``, ``-P``), ``-R yes|no|auto``, the
 map overlay (``-m``, ``--map-yaw``, ``--map-hscale``, ``--map-vscale``),
 the orbit options (``-s``, ``-t``, ``-T``; else time and satellite from
 the filename or the file's mtime), ``--no-sync``, ``--raw-out`` and a
-``.npy`` input, ``-p``, ``-v``, ``-d``, ``-q``, and ``-r RATE`` (the WAV
--> WAV resample tool).  The decode and the resample run on the card
-unless ``--device cpu`` is given; without CUDA and without that flag they
+``.npy`` input, ``-p``, ``-v``, ``-d``, ``-q``, ``--ingest`` (``device``,
+or the host modes ``host``, ``host16``, ``host16c``, ``host8``:
+``noaa_apt_tpu/cli.py:497-511``) and ``-r RATE`` (the WAV -> WAV
+resample tool).  The decode and the resample run on the card unless
+``--device cpu`` is given; without CUDA and without that flag they
 raise.  With sync on and no ``--raw-out`` the decode takes the fused path
-(:meth:`Decoder.decode_render_input` -> :func:`finish_image`), else
-:meth:`Decoder.decode` -> :func:`process`.  A bad ``-m``, ``-s``, ``-t``
-or ``-T`` prints the JAX CLI's message and returns 0, as that CLI does.
-The other modes (``--wav-steps``, ``--export-resample-filtered``, a
-directory, ``--stream``, ``--distributed``, ``--ingest`` other than
-``device``, no input: the GUI) exit 1 with "not ported yet" and write no
-file.
+(:meth:`Decoder.decode_render_input`, or with a host ingest
+:meth:`Decoder.prepare_work` -> :meth:`Decoder.decode_render`, then
+:func:`finish_image`), else :meth:`Decoder.decode` -> :func:`process`.
+A bad ``-m``, ``-s``, ``-t`` or ``-T`` prints the JAX CLI's message and
+returns 0, as that CLI does.  The other modes (``--wav-steps``,
+``--export-resample-filtered``, a directory, ``--stream``,
+``--distributed``, no input: the GUI) exit 1 with "not ported yet" and
+write no file.
 
-    python -m noaa_apt_tpu_torch in.wav -o out.png [-c telemetry] [-F] [-m yes -R auto] [--device cpu]
+    python -m noaa_apt_tpu_torch in.wav -o out.png [-c telemetry] [-F] [-m yes -R auto] [--ingest host16c] [--device cpu]
     python -m noaa_apt_tpu_torch in.wav -r 11025 -o out.wav [--device cpu]
 """
 
@@ -108,8 +111,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distributed", metavar="N_CHIPS", type=int, default=0,
                    help="Sequence-shard the decode over N cards (not ported yet).")
     p.add_argument("--ingest", choices=["device", "host", "host16", "host16c", "host8"],
-                   default="device", help="Where the first resample runs: 'device' (default); "
-                                          "the host modes are not ported yet.")
+                   default="device", help="Where the first resample runs: 'device' (default) uploads "
+                                          "the raw recording; 'host' resamples on the host and uploads "
+                                          "f32, 'host16' i16, 'host8' i8 (lossy), 'host16c' the "
+                                          "lossless packed i16.")
     p.add_argument("--raw-out", metavar="FILE.npy", help=(
         "Also save the raw decoded signal (one float per pixel at 4160 Hz) as .npy; feed it "
         "back as the input to re-process without decoding."))
@@ -128,7 +133,6 @@ def _unported(args) -> str | None:
         (args.export_resample_filtered, "--export-resample-filtered"),
         (args.stream, "--stream"),
         (args.distributed, "--distributed"),
-        (args.ingest != "device", f"--ingest {args.ingest}"),
         (Path(args.input_filename).is_dir(), "a directory input"),
     ):
         if flag:
@@ -199,7 +203,10 @@ def main(argv=None, report: dict | None = None) -> int:
     one WAV (``-r``); returns the exit code.  ``report``, if given,
     receives the wall seconds of each step (of the whole run for ``-r``),
     the decoder's per-stage milliseconds and its ``telemetry`` stage (None
-    where the fused telemetry path did not run)."""
+    where the fused telemetry path did not run), the host ingest's seconds
+    (``ingest_s``, None for ``--ingest device``) and the bytes of the
+    signal or payload copied to the device (``payload_bytes``) with that
+    copy's host-clock milliseconds (``upload_host_ms``)."""
     args = build_parser().parse_args(argv)
     level = logging.DEBUG if args.debug else (logging.WARNING if args.quiet else logging.INFO)
     logging.basicConfig(level=level, format="%(levelname)s %(name)s: %(message)s")
@@ -261,7 +268,7 @@ def main(argv=None, report: dict | None = None) -> int:
         else:
             signal, rate = wav.load_device_ready(args.input_filename)
             t.append(time.perf_counter())
-            decoder = Decoder(settings.profile(), device=device)
+            decoder = Decoder(settings.profile(), device=device, ingest=args.ingest)
             if args.sync and not args.raw_out:
                 # Fused path: the same levels table as noaa_apt_tpu/cli.py:489-496.
                 if contrast.kind == ContrastKind.PERCENT:
@@ -272,8 +279,17 @@ def main(argv=None, report: dict | None = None) -> int:
                     levels = ("telemetry", 0.98)
                 else:
                     levels = ("minmax", 0.98)
-                context.status(0.1, "Decoding (fused, device ingest)")
-                gray, sync_pos = decoder.decode_render_input(signal, len(signal), rate, *levels)
+                context.status(0.1, f"Decoding (fused, {args.ingest} ingest)")
+                payload = None
+                if args.ingest != "device":
+                    # host16c ships the packed payload, uploaded here; the
+                    # other host modes upload in decode_render.
+                    payload = decoder.prepare_work(signal, rate, to_device=(args.ingest == "host16c"),
+                                                   context=context)
+                if payload is not None:
+                    gray, sync_pos = decoder.decode_render(payload, *levels)
+                else:  # device ingest, or an l == 1 rate pair
+                    gray, sync_pos = decoder.decode_render_input(signal, len(signal), rate, *levels)
                 t.append(time.perf_counter())
                 context.status(0.5, "Generating image")
                 img = finish_image(gray, contrast.kind, rotate, color, orbit, context)
@@ -294,7 +310,10 @@ def main(argv=None, report: dict | None = None) -> int:
     log.info("Saved %s", out)
     if report is not None:
         stage_ms = dict(decoder.last_stage_ms) if decoder is not None else {}
+        upload = decoder.last_upload if decoder is not None and decoder.last_upload else {}
         report.update({
+            "ingest_s": decoder.last_ingest_s if decoder is not None else None,
+            "payload_bytes": upload.get("bytes"), "upload_host_ms": upload.get("host_ms"),
             "load_s": t[1] - t[0], "decode_s": t[2] - t[1], "finish_s": t[3] - t[2],
             "save_s": t[4] - t[3], "wall_s": t[4] - t[0], "rows": int(img.shape[0]),
             "sync_positions": sync_pos, "stage_ms": stage_ms,

@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # csrc/<name>.cu -> lib<name>-<hash>.so
-SOURCES = ("resample", "stage", "select")
+SOURCES = ("resample", "stage", "select", "unpack")
 
 # sm_90a: Hopper.  --fmad=false plus the explicit __fmul_rn/__fadd_rn in
 # the sources: every multiply and add rounds once, which is what makes

@@ -150,7 +150,7 @@ def test_cli_raw_out_then_npy_matches_jax(tmp_path, pass_wav):
 @pytest.mark.parametrize("flags,what", [
     (["--wav-steps"], "--wav-steps"), (["--export-resample-filtered"], "--export-resample-filtered"),
     (["--stream"], "--stream"), (["--distributed", "2"], "--distributed"),
-    (["--ingest", "host16"], "--ingest host16"),
+    (["--ingest", "host16", "--stream"], "--stream"),
 ])
 def test_cli_unported_options_exit_1(tmp_path, caplog, pass_wav, flags, what):
     rc = cli.main([str(pass_wav), "-o", "out.png", "--device", "cpu", *flags])

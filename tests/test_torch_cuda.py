@@ -353,3 +353,104 @@ def test_cuda_cli_map_and_auto_rotate_match_cpu(cuda_device, tmp_path, monkeypat
     assert got.shape == want.shape
     d = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert d.max(initial=0) <= 1 and (d > 0).mean() <= 1e-3
+
+
+def _k4_case(name: str) -> np.ndarray:
+    """Work signals of the codec's regimes (``tests/test_pack.py``'s cases,
+    rebuilt here without the JAX package): a carrier, escapes, a ragged
+    tail, full-scale noise."""
+    t = np.arange(40_000)
+    carrier = np.sin(2 * np.pi * 2400 / 12480 * t)
+    if name == "am_carrier":
+        return ((8000 + 7000 * np.sin(2 * np.pi * 0.001 * t)) * carrier).astype(np.int16)
+    if name == "mixed_quiet_spikes":
+        x = (300 * carrier).astype(np.int16)
+        x[7000:7000 + 2000] = np.random.default_rng(7).integers(-32768, 32768, 2000)
+        return x
+    if name == "ragged_tail":
+        return np.arange(128 * 2 + 17, dtype=np.int16)
+    return np.random.default_rng(0).integers(-32768, 32768, 4096).astype(np.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["am_carrier", "mixed_quiet_spikes", "ragged_tail", "noise_full_scale"])
+def test_cuda_unpack_kernel_bit_equal(cuda_device, name):
+    """K4 against its twin, escape padding included; the decode is the
+    encoder's input."""
+    from noaa_apt_tpu_torch.ops import pack as pk
+
+    x = _k4_case(name)
+    p = pk.pack_work_i16(x, 12480)
+    n_esc_pad = max(4, len(p.esc_idx) + 3)
+    buf = torch.from_numpy(pk.seal_packed(p, n_esc_pad).view(np.int32))
+    pk.unpack_sealed.launches = 0
+    got = pk.unpack_sealed(buf.to(cuda_device), p.nb, p.w_lo, n_esc_pad, p.coeff)
+    torch.cuda.synchronize()
+    assert pk.unpack_sealed.launches == 1
+    assert torch.equal(got.cpu(), pk.unpack_sealed_plain(buf, p.nb, p.w_lo, n_esc_pad, p.coeff))
+    np.testing.assert_array_equal(got.cpu().numpy()[: len(x)], x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_lo", [4, 7, 13, 16])
+def test_cuda_unpack_kernel_corrupt_buffer(cuda_device, w_lo):
+    """Random words (int32 wraparound in the recurrence) and unique escape
+    indices, negative and out of range: K4 equals its twin."""
+    from noaa_apt_tpu_torch.ops import pack as pk
+
+    rng = np.random.default_rng(w_lo)
+    nb, n_esc_pad = 77, 8
+    words = rng.integers(0, 2**32, pk.sealed_len(nb, w_lo, n_esc_pad), dtype=np.uint32)
+    words[nb : nb + n_esc_pad] = np.array([-1, 5, -77, nb, -78, 2**31 - 1, 40, -30], np.int32).view(np.uint32)
+    buf = torch.from_numpy(words.view(np.int32))
+    got = pk.unpack_sealed(buf.to(cuda_device), nb, w_lo, n_esc_pad, 11620)
+    assert torch.equal(got.cpu(), pk.unpack_sealed_plain(buf, nb, w_lo, n_esc_pad, 11620))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["host", "host16", "host16c", "host8"])
+def test_cuda_host_ingest_render_matches_cpu(cuda_device, mode):
+    """Each host mode on the card: K1 does not launch, host16c launches K4
+    once, and the render equals the CPU's (the same payload; every kernel
+    is bit-equal to its twin)."""
+    from noaa_apt_tpu_torch import ops
+
+    x = _pcm_rows(48000, 24)
+    gpu = Decoder(PROFILES["standard"], ingest=mode)
+    cpu = Decoder(PROFILES["standard"], device="cpu", ingest=mode)
+    ops.reset_launch_counts()
+    got = gpu.decode_render(gpu.prepare_work(x, Rate(48000), to_device=(mode == "host16c")))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert launches["polyphase_resample"] == 0 and launches["select_peaks"] == 1
+    assert launches["unpack_sealed"] == (1 if mode == "host16c" else 0)
+    want = cpu.decode_render(cpu.prepare_work(x, Rate(48000), to_device=(mode == "host16c")))
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+def test_cuda_batched_renders_launch_k3_once(cuda_device):
+    """``decode_render_batch`` and ``decode_render_input_batch`` on the
+    card: one K3 launch per batch, each member equal to its unbatched
+    render."""
+    from noaa_apt_tpu_torch import ops
+
+    dec = Decoder(PROFILES["standard"], ingest="host16c")
+    sigs = [_pcm_rows(48000, 20), _pcm_rows(48000, 20)[:-1000]]  # one bucket, one (w_lo, n_esc_pad)
+    payloads = [dec.prepare_work(s, Rate(48000), to_device=True) for s in sigs]
+    ops.reset_launch_counts()
+    got = dec.decode_render_batch(payloads)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["select_peaks"] == 1 and ops.launch_counts()["unpack_sealed"] == 2
+    for p, (gray, sync_pos) in zip(payloads, got):
+        want_gray, want_sync = dec.decode_render(p)
+        assert sync_pos == want_sync
+        np.testing.assert_array_equal(gray, want_gray)
+    ops.reset_launch_counts()
+    got = dec.decode_render_input_batch(sigs, [len(s) for s in sigs], Rate(48000))
+    assert ops.launch_counts()["select_peaks"] == 1 and ops.launch_counts()["polyphase_resample"] == 2
+    for s, (gray, sync_pos) in zip(sigs, got):
+        want_gray, want_sync = dec.decode_render_input(s, len(s), Rate(48000))
+        assert sync_pos == want_sync
+        np.testing.assert_array_equal(gray, want_gray)

@@ -45,6 +45,7 @@ def test_port_never_loads_jax_or_the_jax_package():
             "noaa_apt_tpu_torch.post.telemetry", "noaa_apt_tpu_torch.post.imageext",
             "noaa_apt_tpu_torch.post.palette", "noaa_apt_tpu_torch.io.misc",
             "noaa_apt_tpu_torch.graph.debug", "noaa_apt_tpu_torch.graph.resample_tool",
+            "noaa_apt_tpu_torch.ops.pack", "noaa_apt_tpu_torch.native",
             *(f"noaa_apt_tpu_torch.geo.{m}" for m in ("geometry", "sgp4", "tle", "orbit",
                                                        "shapefile", "states", "map_overlay"))
             } <= set(mods)
@@ -68,7 +69,8 @@ def test_source_scan_finds_no_jax_imports():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     assert {PORT / "geo" / "map_overlay.py", PORT / "geo" / "sgp4.py", PORT / "io" / "misc.py",
-            PORT / "graph" / "debug.py", PORT / "graph" / "resample_tool.py"} <= set(files)
+            PORT / "graph" / "debug.py", PORT / "graph" / "resample_tool.py", PORT / "ops" / "pack.py",
+            PORT / "native" / "__init__.py"} <= set(files)
     offenders = [str(p.relative_to(ROOT)) for p in files if _IMPORT.search(p.read_text())]
     assert offenders == []
 
@@ -80,10 +82,12 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     env["PATH"] = str(tmp_path)
     code = (
         "import noaa_apt_tpu_torch.ops.resample, noaa_apt_tpu_torch.ops.stage\n"
-        "import noaa_apt_tpu_torch.ops.select\n"
+        "import noaa_apt_tpu_torch.ops.select, noaa_apt_tpu_torch.ops.pack\n"
+        "import noaa_apt_tpu_torch.native as native\n"
         "from noaa_apt_tpu_torch.ops import _build, launch_counts\n"
-        "assert _build._libs == {}\n"
-        "assert launch_counts() == {'polyphase_resample': 0, 'demod_fir_corr': 0, 'select_peaks': 0}\n"
+        "assert _build._libs == {} and native._lib is None\n"
+        "assert launch_counts() == {'polyphase_resample': 0, 'demod_fir_corr': 0, 'select_peaks': 0,\n"
+        "                           'unpack_sealed': 0}\n"
     )
     proc = _run_py(code, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -110,9 +114,13 @@ def test_wrappers_take_the_plain_twin_only_for_cpu_tensors():
     from noaa_apt_tpu_torch.ops import launch_counts, reset_launch_counts
     from noaa_apt_tpu_torch.ops.select import select_peaks
 
+    from noaa_apt_tpu_torch.ops.pack import sealed_len, unpack_sealed
+
     reset_launch_counts()
     select_peaks(torch.zeros((1, 100)), [100], 20, 16, 16)
-    assert launch_counts() == {"polyphase_resample": 0, "demod_fir_corr": 0, "select_peaks": 0}
+    unpack_sealed(torch.zeros(sealed_len(2, 8, 4), dtype=torch.int32), 2, 8, 4, 11620)
+    assert launch_counts() == {"polyphase_resample": 0, "demod_fir_corr": 0, "select_peaks": 0,
+                               "unpack_sealed": 0}
 
 
 def test_resolve_device_pins_fp32():
@@ -195,3 +203,48 @@ def test_port_ships_its_own_resources(monkeypatch):
     assert sorted(p.name for p in res_path("shapefiles").glob("*.shp")) == ["countries.shp", "lakes.shp"]
     data = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"]
     assert {"res/palettes/*.png", "res/shapefiles/*.shp"} <= set(data["noaa_apt_tpu_torch"])
+
+
+def test_host_library_is_the_ports_own_build():
+    """The host ingest library that ``noaa_apt_tpu_torch.native`` loads is
+    built from the port's ``native/ingest.cpp`` into the port's own
+    ``_build/``, never ``noaa_apt_tpu/native/_libapt.so``."""
+    from noaa_apt_tpu_torch import native
+
+    lib = Path(native.get_lib()._name).resolve()
+    assert lib.parent == PORT / "_build" and lib.name.startswith("libingest-")
+    assert native.SOURCE == PORT / "native" / "ingest.cpp"
+    assert lib in {native.lib_path(extra) for extra in native.GXX_VARIANTS}
+
+
+def test_host_ingest_never_opens_the_jax_native_directory(tmp_path):
+    """Every host mode (payload, render, packed codec, the CLI) in a fresh
+    process, with an audit hook on file opens and library loads: nothing
+    under ``noaa_apt_tpu/native/`` is touched, and neither JAX nor the JAX
+    package is imported."""
+    code = (
+        "import sys\n"
+        f"JAX_NATIVE = {str(ROOT / 'noaa_apt_tpu' / 'native')!r}\n"
+        "seen = []\n"
+        "def hook(event, args):\n"
+        "    if event in ('open', 'ctypes.dlopen', 'os.listdir', 'os.scandir') and args and args[0]:\n"
+        "        p = str(args[0])\n"
+        "        if p.startswith(JAX_NATIVE) or '_libapt' in p:\n"
+        "            seen.append((event, p))\n"
+        "sys.addaudithook(hook)\n"
+        "import numpy as np\n"
+        "from noaa_apt_tpu_torch import cli, synth\n"
+        "from noaa_apt_tpu_torch.io import wav\n"
+        "sig, _ = synth.synth_recording(n_rows=16, sample_rate=11025, noise_db=30.0, seed=1)\n"
+        f"path = {str(tmp_path / 'p.wav')!r}\n"
+        "wav.write_wav(path, sig, wav.WavSpec(1, 11025, 16, 'int'))\n"
+        "for mode in ('host', 'host16', 'host16c', 'host8'):\n"
+        f"    assert cli.main([path, '-o', {str(tmp_path / 'o.png')!r}, '--device', 'cpu', '-q',\n"
+        "                     '--ingest', mode]) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'noaa_apt_tpu'))\n"
+        "assert not seen and not bad, (seen, bad)\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "XDG_CONFIG_HOME": str(tmp_path / "cfg")}
+    proc = _run_py(code, env=env)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stdout + proc.stderr
