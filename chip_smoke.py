@@ -12,9 +12,17 @@ Phases, one JSON line each (``{"phase": ...}``):
    48 kHz standard pass (K1/K2 also at 11025 Hz and on the fast and slow
    profiles at both rates; K1 also on seeded 10-minute int16 passes at
    22050 Hz standard and 44100 Hz standard and slow, on 11011 Hz slow
-   (l = 1600), with float32 input and its tap bank in global memory, and
-   in three ``k0`` chunks at 48 kHz standard and 11025 Hz slow, each K1
-   record naming the variant that ran, "block", "class" or "phase"; K1
+   (l = 1600, its tap table in global memory) and on 250 kHz standard
+   ("phase", its 241 KB bank in global memory), and in three ``k0``
+   chunks at 48 kHz standard and 11025 Hz slow, each K1 record naming
+   the variant that ran, "block", "class" or "phase"; K1 with float32
+   input (the same int16 values: the int16 run's variant but "phase" at
+   48 kHz fast, and its outputs bit for bit) at 48 kHz and 11025 Hz on
+   every profile, 22050 and 44100 Hz, 11011 Hz slow and the 24960 Hz
+   l == 1 pass;
+   ``kernel_non_finite``, K1 on
+   float32 passes at 48 kHz ("block") and 11025 Hz ("class") holding
+   NaN, +-inf, -0.0, subnormals and +-3e38, bit for bit its twin; K1
    as the l == 1 causal FIR decimated by m (``"path": "l1"``) on seeded
    10-minute int16 passes at 24960 Hz standard (m = 2), 12480 Hz standard
    (m = 1) and 41600 Hz slow (m = 2), with the cost of its zero prefix; K3
@@ -39,7 +47,10 @@ Phases, one JSON line each (``{"phase": ...}``):
    synthesized 10-minute 48 kHz pass with each contrast and colour
    choice (``98_percent``, ``-c telemetry``, ``-c histogram``, ``-F``),
    ``--no-sync``, ``--raw-out`` and then the ``.npy`` re-processed, then
-   on 11025 Hz and 24960 Hz (l == 1) passes, with the kernels' launch
+   on 11025 Hz and 24960 Hz (l == 1) passes, then on the 48 kHz pass as
+   a 32-bit float WAV (K1 "block" on float32) and the 11025 Hz pass as a
+   24-bit PCM WAV (K1 "class"), each PNG byte-equal to its int16 run's,
+   with the kernels' launch
    counters set to 0 just before each run and read just after (one
    launch of each kernel per decode; none of K3 without sync, none at
    all for the ``.npy``); the telemetry run checks the channel names
@@ -53,8 +64,9 @@ Phases, one JSON line each (``{"phase": ...}``):
    stage's wall time, which holds the overlay;
 7. ``resample_tool`` — the CLI's WAV -> WAV mode (``-r``): 48000 -> 11025
    on the 48 kHz pass, 11025 -> 48000 on the 11025 Hz pass and 24960 ->
-   12480 (l == 1) on the 24960 Hz pass, with one launch of K1 ("phase",
-   the tool's float32 samples) per run; K1 at each run's tables
+   12480 (l == 1) on the 24960 Hz pass, with one launch of K1 per run on
+   the tool's float32 samples ("phase": m > 4 l; "class"; "block"); K1
+   at each run's tables
    ``torch.equal`` to its twin on the card and timed as in phase 3
    (beside ``F.conv1d``); the written WAV's length, rate and mtime;
 8. ``select_stage`` — the decoder's select stage (K3 and its one fetch),
@@ -63,9 +75,11 @@ Phases, one JSON line each (``{"phase": ...}``):
    to its plain twin on the 48 kHz pass's sealed buffer (built by the
    port's ``prepare_work``; its decode is also the host16 payload), on a
    pass-length stream that forces escape rows (a quiet carrier with
-   full-scale noise bursts) and on a corrupt buffer (random words, unique
-   escape indices, negative and out of range); timed as in phase 3, with
-   the bound (bytes), ``w_lo``, the escape count and the sealed bytes;
+   full-scale noise bursts), on a corrupt buffer (random words, unique
+   escape indices, negative and out of range) and on a duplicates buffer
+   (indices that name blocks more than once: the last row wins); timed
+   as in phase 3, with the card-only time, the bound (bytes), ``w_lo``,
+   the escape count and the sealed bytes;
 10. ``ingest_path`` — the CLI on the 48 kHz pass with ``--ingest device``,
    ``host``, ``host16``, ``host16c`` and ``host8``, and with ``host16c``
    on the 11025 Hz pass: per run the wall, load, ``ingest_s`` (the host
@@ -183,6 +197,36 @@ def synth_wav(path: Path, rate: int, rows: int) -> None:
 
     sig, _ = synth.synth_recording(n_rows=rows, sample_rate=rate, seed=0)
     wav.write_wav(path, sig, wav.WavSpec(1, rate, 16, "int"))
+
+
+def write_wav_as(path: Path, pcm, rate: int, kind: str) -> None:
+    """Mono ``pcm`` (int16 values, host) as a 32-bit IEEE-float WAV
+    (``kind`` "float32": the values unscaled) or a 24-bit PCM WAV ("int24":
+    the same integers): both decode to float32 samples equal to the int16
+    ones, so the decoder runs K1 on float32 input."""
+    import struct
+
+    import numpy as np
+
+    v = np.asarray(pcm, np.int32)
+    if kind == "float32":
+        data, fmt, bits = v.astype("<f4").tobytes(), 3, 32
+    else:
+        data, fmt, bits = (v.astype("<i4").view(np.uint8).reshape(-1, 4)[:, :3]).tobytes(), 1, 24
+    fmt_chunk = struct.pack("<HHIIHH", fmt, 1, rate, rate * bits // 8, bits // 8, bits)
+    path.write_bytes(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt_chunk) + 8 + len(data)) + b"WAVE"
+                     + b"fmt " + struct.pack("<I", len(fmt_chunk)) + fmt_chunk
+                     + b"data" + struct.pack("<I", len(data)) + data)
+
+
+def assert_bits_equal(torch, name: str, got, want) -> None:
+    """Raise unless the float32 ``got`` and ``want`` are equal bit for bit
+    (their int32 views: ``torch.equal`` fails on NaN)."""
+    gi, wi = got.view(torch.int32), want.view(torch.int32)
+    if not torch.equal(gi, wi):
+        bad = (gi != wi).nonzero()[:, 0]
+        raise AssertionError(f"{name}: kernel != plain twin in {bad.numel()} outputs' bits, first at "
+                             f"{int(bad[0])}: {float(got[bad[0]])} vs {float(want[bad[0]])}")
 
 
 def assert_equal(torch, name: str, got, want) -> float:
@@ -332,6 +376,65 @@ def resample_case(torch, dev, x, t, label: str, work: int | None = None):
     return rec, y
 
 
+def float_case(torch, dev, x, t, label: str, rec16: dict, y16=None, work: int | None = None,
+               variant: str | None = None) -> dict:
+    """K1 on the int16 ``x`` converted to float32, against its twin
+    (``resample_case``): it must run ``variant``, by default that of the
+    int16 record ``rec16`` of the same shape, and, with ``y16``, give the
+    int16 launch's outputs bit for bit (the conversion is exact and every
+    variant sums the same products in the same order).  Emits and
+    returns the record."""
+    rec, y = resample_case(torch, dev, x.to(torch.float32), t, f"{label} f32", work)
+    want = variant or rec16["variant"]
+    if rec["variant"] != want:
+        raise AssertionError(f"{label}: float32 input ran K1 {rec['variant']}, not {want}")
+    if y16 is not None:
+        assert_equal(torch, f"polyphase_resample@{label} f32 vs int16", y, y16)
+    emit("kernel", name="polyphase_resample", bit_equal=True, input="float32", **rec)
+    return rec
+
+
+# Float32 samples that 0 * x does not cancel (inf, NaN) or that stress the
+# rounding (-0.0, subnormals, near the largest finite value).
+SPECIALS = (float("nan"), float("inf"), float("-inf"), -0.0, 1e-45, -3e-42, 3e38, -3e38)
+
+
+def non_finite_phase(torch, dev, wav48: Path, wav11: Path) -> None:
+    """K1 with float32 input seeded with ``SPECIALS`` at block-major CTA
+    boundaries (the first sample of a CTA's span, which the CTA before
+    also stages) and inside spans, on the 48 kHz ("block") and 11025 Hz
+    ("class") standard passes: bit for bit its twin (int32 views)."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph.decode import DecodeTables
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.ops.resample import K1_CTA_BLOCKS, polyphase_resample, polyphase_resample_plain
+
+    for path, want in ((wav48, "block"), (wav11, "class")):
+        signal, rate = wav.load_device_ready(path)
+        t = DecodeTables.design(STANDARD, rate)
+        x = np.array(signal).astype(np.float32)
+        n, cta = x.shape[0], K1_CTA_BLOCKS * t.m
+        # Eight CTAs spread over the pass: three specials each.
+        ks = np.linspace(1, n // cta - 1, 8).astype(np.int64)
+        at = np.concatenate([ks * cta, ks * cta + 1 + np.arange(8), ks * cta + cta // 2 + np.arange(8)])
+        x[at] = np.resize(np.array(SPECIALS, np.float32), at.shape[0])
+        xd = torch.from_numpy(x).to(dev)
+        args = [torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c)]
+        work = t.work_len(n)
+        got = polyphase_resample(xd, *args, t.m, work)
+        variant = polyphase_resample.last_variant
+        if variant != want:
+            raise AssertionError(f"{rate.hz} Hz non-finite float32: K1 ran {variant}, not {want}")
+        ref = polyphase_resample_plain(xd, *args, t.m, work)
+        assert_bits_equal(torch, f"polyphase_resample@{rate.hz}/standard non-finite f32", got, ref)
+        emit("kernel_non_finite", name="polyphase_resample", variant=variant, bits_equal=True,
+             specials=len(at), nan_outputs=int(torch.isnan(ref).sum()),
+             inf_outputs=int(torch.isinf(ref).sum()),
+             shape=f"{rate.hz}/standard: f32[{n}] -> f32[{work}], l={t.l} m={t.m} T={t.bank.shape[1]}")
+
+
 def seeded_pcm(rate: int, seconds: int = 600):
     """A seeded full-range int16 recording of ``seconds`` at ``rate``."""
     import numpy as np
@@ -371,6 +474,8 @@ def stage_profile_phase(torch, dev, wav_path: Path, profile, label: str, k0_spli
     x = torch.from_numpy(np.array(signal)).to(dev)
     rec1, y = resample_case(torch, dev, x, t, label)
     emit("kernel", name="polyphase_resample", bit_equal=True, **rec1)
+    # At 48 kHz fast a float32 block-major CTA would leave two an SM: "phase".
+    float_case(torch, dev, x, t, label, rec1, y, variant="phase" if label == "48000/fast" else None)
     if k0_split:
         k0_split_check(torch, dev, x, t, label)
     rec, _ = stage_case(torch, dev, y, t, label)
@@ -379,16 +484,18 @@ def stage_profile_phase(torch, dev, wav_path: Path, profile, label: str, k0_spli
 
 def resample_rates_phase(torch, dev) -> None:
     """K1 alone on seeded 10-minute int16 passes at the gather regime's
-    other rates: 22050 Hz standard, 44100 Hz standard and slow."""
+    other rates, 22050 Hz standard, 44100 Hz standard and slow, and on
+    the same samples as float32."""
     from noaa_apt_tpu_torch.core.frequency import Rate
     from noaa_apt_tpu_torch.core.profiles import SLOW, STANDARD
     from noaa_apt_tpu_torch.graph.decode import DecodeTables
 
     for rate, profile in ((22050, STANDARD), (44100, STANDARD), (44100, SLOW)):
         x = torch.from_numpy(seeded_pcm(rate)).to(dev)
-        rec, _ = resample_case(torch, dev, x, DecodeTables.design(profile, Rate(rate)),
-                               f"{rate}/{profile.name} seeded")
+        t = DecodeTables.design(profile, Rate(rate))
+        rec, y = resample_case(torch, dev, x, t, f"{rate}/{profile.name} seeded")
         emit("kernel", name="polyphase_resample", bit_equal=True, **rec)
+        float_case(torch, dev, x, t, f"{rate}/{profile.name} seeded", rec, y)
 
 
 def l1_phase(torch, dev) -> None:
@@ -412,6 +519,9 @@ def l1_phase(torch, dev) -> None:
             raise AssertionError(f"{rate}/{profile.name}: K1 ran {rec['variant']} at l = 1, not block")
         rec["prefix_ms"] = time_ms(torch, lambda: causal_input(pcm, k))
         emit("kernel", name="polyphase_resample", bit_equal=True, path="l1", **rec)
+        if rate == 24960:
+            float_case(torch, dev, causal_input(pcm, k), t, f"{rate}/{profile.name} seeded, l = 1", rec,
+                       work=t.work_len(pcm.shape[0]))
 
 
 def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) -> dict:
@@ -432,6 +542,7 @@ def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) 
 
     # K1: polyphase resample.
     out["polyphase_resample"], y = resample_case(torch, dev, x, t, label)
+    out["polyphase_resample"]["float32"] = float_case(torch, dev, x, t, label, out["polyphase_resample"], y)
     if batch4:  # the 48 kHz standard pass
         k0_split_check(torch, dev, x, t, label)
 
@@ -470,34 +581,38 @@ def kernel_phase(torch, dev, wav_path: Path, profile, label: str, batch4: bool) 
 
 
 def global_bank_phase(torch, dev) -> None:
-    """K1 on the slow profile at 11011 Hz (l = 1600, a 320 KB tap bank):
-    with float32 input the per-phase variant, whose bank is too large for
-    shared memory and is read from global memory; with int16 input the
-    class-major variant."""
+    """K1 with a tap bank too large for shared memory, int16 and float32
+    input: on the slow profile at 11011 Hz (l = 1600, a 320 KB bank) the
+    class-major variant, which reads its tap table from global memory;
+    on the standard profile at 250 kHz (l 156, m 3125, T 384: no
+    class-major CTA fits, and the bank and phase tables take 240,864
+    bytes) "phase", which then reads its bank from global memory."""
     import numpy as np
 
     from noaa_apt_tpu_torch import synth
     from noaa_apt_tpu_torch.core.frequency import Rate
-    from noaa_apt_tpu_torch.core.profiles import SLOW
+    from noaa_apt_tpu_torch.core.profiles import SLOW, STANDARD
     from noaa_apt_tpu_torch.graph.decode import DecodeTables
-    from noaa_apt_tpu_torch.ops.resample import polyphase_resample, polyphase_resample_plain
+    from noaa_apt_tpu_torch.ops.resample import k1_phase_smem, polyphase_resample, polyphase_resample_plain
 
-    t = DecodeTables.design(SLOW, Rate(11011))
-    sig, _ = synth.synth_recording(n_rows=4, sample_rate=11011, seed=0)
-    x16 = torch.from_numpy(np.round(sig / np.abs(sig).max() * 30000).astype(np.int16)).to(dev)
-    args = [torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c)]
-    work = t.work_len(x16.shape[0])
-    for x, want, where in ((x16.to(torch.float32), "phase", f"bank {t.bank.nbytes} B in global memory"),
-                           (x16, "class", "class-major")):
-        got = polyphase_resample(x, *args, t.m, work)
-        if polyphase_resample.last_variant != want:
-            raise AssertionError(f"11011/slow {x.dtype} ran K1's {polyphase_resample.last_variant} "
-                                 f"variant, not {want}")
-        err = assert_equal(torch, f"polyphase_resample@11011/slow {x.dtype}", got,
-                           polyphase_resample_plain(x, *args, t.m, work))
-        emit("kernel", name="polyphase_resample", bit_equal=True, max_abs_err=err, variant=want,
-             shape=f"11011/slow: {str(x.dtype)[6:]}[{x.shape[0]}] -> f32[{work}], l={t.l} m={t.m} "
-                   f"T={t.bank.shape[1]}, {where}")
+    for profile, rate, want in ((SLOW, 11011, "class"), (STANDARD, 250000, "phase")):
+        t = DecodeTables.design(profile, Rate(rate))
+        sig, _ = synth.synth_recording(n_rows=4, sample_rate=rate, seed=0)
+        x16 = torch.from_numpy(np.round(sig / np.abs(sig).max() * 30000).astype(np.int16)).to(dev)
+        args = [torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c)]
+        work = t.work_len(x16.shape[0])
+        label = f"{rate}/{profile.name}"
+        where = f"bank {t.bank.nbytes} B, with the phase tables {k1_phase_smem(t.l, t.bank.shape[1])} B"
+        for x in (x16.to(torch.float32), x16):
+            got = polyphase_resample(x, *args, t.m, work)
+            if polyphase_resample.last_variant != want:
+                raise AssertionError(f"{label} {x.dtype} ran K1's {polyphase_resample.last_variant} "
+                                     f"variant, not {want}")
+            err = assert_equal(torch, f"polyphase_resample@{label} {x.dtype}", got,
+                               polyphase_resample_plain(x, *args, t.m, work))
+            emit("kernel", name="polyphase_resample", bit_equal=True, max_abs_err=err, variant=want,
+                 shape=f"{label}: {str(x.dtype)[6:]}[{x.shape[0]}] -> f32[{work}], l={t.l} m={t.m} "
+                       f"T={t.bank.shape[1]}, {where}, in global memory")
 
 
 def reference_phase(torch) -> None:
@@ -636,13 +751,16 @@ def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k
 def main_path_runs(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr: int) -> dict:
     """Every contrast and colour choice of the CLI on the 48 kHz pass, the
     unfused paths (--no-sync, --raw-out, the .npy re-process), then the
-    11025 Hz and 24960 Hz passes; returns the default run's launches."""
+    11025 Hz and 24960 Hz passes; then the 48 kHz pass as a 32-bit float
+    WAV (K1 "block" on float32) and the 11025 Hz pass as a 24-bit PCM WAV
+    (K1 "class" on float32), each PNG byte-equal to its int16 run's.
+    Returns the default run's launches."""
     import numpy as np
 
-    from noaa_apt_tpu_torch.io import png
+    from noaa_apt_tpu_torch.io import png, wav
 
-    def run(wav, name, rate, variant, *flags, **kw):
-        return main_path_phase(torch, wav, tmp / f"{name}.png", rate, spr, variant, ("-q", *flags),
+    def run(wav_path, name, rate, variant, *flags, **kw):
+        return main_path_phase(torch, wav_path, tmp / f"{name}_{rate}.png", rate, spr, variant, ("-q", *flags),
                                label=name, **kw)
 
     launches = run(wav48, "98_percent", 48000, "block")["launches"]
@@ -657,12 +775,20 @@ def main_path_runs(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr:
     raw = tmp / "raw.npy"
     run(wav48, "raw_out", 48000, "block", "--raw-out", str(raw))
     run(raw, "npy", 48000, None, expect={k: 0 for k in ALL_ONCE})
-    d = np.abs(png.read_png(tmp / "npy.png").astype(np.int16) - png.read_png(tmp / "raw_out.png"))
+    d = np.abs(png.read_png(tmp / "npy_48000.png").astype(np.int16) - png.read_png(tmp / "raw_out_48000.png"))
     if d.max(initial=0) > 1 or (d > 0).mean() > 1e-3:
         raise AssertionError("the .npy re-process differs from its --raw-out run beyond +-1 on 0.1%")
     emit("npy_vs_raw_out", pixels_differing=int((d > 0).sum()))
     run(wav11, "98_percent", 11025, "class")
     run(wav25, "98_percent", 24960, "block")
+    for src, rate, kind, variant in ((wav48, 48000, "float32", "block"), (wav11, 11025, "int24", "class")):
+        path = tmp / f"pass_{rate}_{kind}.wav"
+        write_wav_as(path, wav.load_device_ready(src)[0], rate, kind)
+        run(path, f"98_percent_{kind}_wav", rate, variant)
+        same = (tmp / f"98_percent_{kind}_wav_{rate}.png").read_bytes() == (tmp / f"98_percent_{rate}.png").read_bytes()
+        if not same:
+            raise AssertionError(f"the {kind} WAV's PNG differs from the int16 WAV's at {rate} Hz")
+        emit("float_wav_vs_int16", rate=rate, wav=kind, k1_variant=variant, png_byte_equal=True)
     return launches
 
 
@@ -713,25 +839,41 @@ def map_path_phase(torch, tmp: Path, wav_path: Path, rate: int, spr: int, k1_var
          finish_s=report["finish_s"], wall_s=report["wall_s"], launches=report["launches"])
 
 
-def resample_tool_phase(torch, dev, tmp: Path, runs, k1_variant: str | None = "phase") -> list[dict]:
-    """The CLI's ``-r`` on each ``(wav, input rate, output rate)`` of
-    ``runs``: one K1 launch per run (counts set to 0 just before, read
-    just after), in ``k1_variant``; then K1 at that run's tables against
-    its twin and timed (``resample_case``); the written WAV's length,
-    rate and mtime.  Returns the K1 records."""
+def tool_k1_inputs(torch, dev, src: Path, rin: int, rout: int):
+    """K1's inputs for the CLI's ``-r rout`` on the WAV ``src`` at ``rin``
+    Hz, as the tool builds them (``graph/debug.k1_inputs`` over the WAV's
+    float32 samples, the settings file's filter): -> (x, tables, work)
+    with ``tables`` what ``resample_case`` takes."""
     from types import SimpleNamespace
 
-    from noaa_apt_tpu_torch import cli, ops
     from noaa_apt_tpu_torch.core.frequency import Freq, Rate
     from noaa_apt_tpu_torch.graph.debug import k1_inputs, resample_lowpass
     from noaa_apt_tpu_torch.graph.decode import _plan_resample_with_filter
     from noaa_apt_tpu_torch.io import config as cfg
     from noaa_apt_tpu_torch.io import wav
-    from noaa_apt_tpu_torch.ops import resample as rs
 
     settings = cfg.build_settings(cfg.load_de_settings())
+    x_host, _ = wav.load_wav(src)
+    filt = resample_lowpass(Rate(rin), Rate(rout), settings.wav_resample_atten,
+                            Freq.from_pi_rad(settings.wav_resample_delta_freq))
+    l, m, coeff = _plan_resample_with_filter(Rate(rin), Rate(rout), filt)
+    x, bank, p_c, s_c, _, work = k1_inputs(torch.from_numpy(x_host).to(dev), l, m, coeff)
+    tables = SimpleNamespace(bank=bank.cpu().numpy(), p_c=p_c.cpu().numpy(), s_c=s_c.cpu().numpy(), l=l, m=m)
+    return x, tables, work
+
+
+def resample_tool_phase(torch, dev, tmp: Path, runs) -> list[dict]:
+    """The CLI's ``-r`` on each ``(wav, input rate, output rate, K1
+    variant)`` of ``runs``: one K1 launch per run (counts set to 0 just
+    before, read just after), in that variant; then K1 at that run's
+    tables against its twin and timed (``resample_case``); the written
+    WAV's length, rate and mtime.  Returns the K1 records."""
+    from noaa_apt_tpu_torch import cli, ops
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.ops import resample as rs
+
     records = []
-    for src, rin, rout in runs:
+    for src, rin, rout, k1_variant in runs:
         out = tmp / f"resampled_{rin}_{rout}.wav"
         report: dict = {}
         ops.reset_launch_counts()
@@ -743,17 +885,12 @@ def resample_tool_phase(torch, dev, tmp: Path, runs, k1_variant: str | None = "p
             raise AssertionError(f"-r {rout} on the {rin} Hz pass returned {rc}")
         if launches != {"polyphase_resample": 1, "demod_fir_corr": 0, "select_peaks": 0, "unpack_sealed": 0}:
             raise AssertionError(f"launches of -r {rout} on the {rin} Hz pass: {launches}")
-        if k1_variant is not None and variant != k1_variant:
+        if variant != k1_variant:
             raise AssertionError(f"-r {rout} on the {rin} Hz pass ran K1 {variant}, not {k1_variant}")
-        x_host, _ = wav.load_wav(src)
-        filt = resample_lowpass(Rate(rin), Rate(rout), settings.wav_resample_atten,
-                                Freq.from_pi_rad(settings.wav_resample_delta_freq))
-        l, m, coeff = _plan_resample_with_filter(Rate(rin), Rate(rout), filt)
-        x, bank, p_c, s_c, _, work = k1_inputs(torch.from_numpy(x_host).to(dev), l, m, coeff)
-        tables = SimpleNamespace(bank=bank.cpu().numpy(), p_c=p_c.cpu().numpy(), s_c=s_c.cpu().numpy(),
-                                 l=l, m=m)
+        x, tables, work = tool_k1_inputs(torch, dev, src, rin, rout)
+        l, m = tables.l, tables.m
         rec, _ = resample_case(torch, dev, x, tables, f"-r {rin} -> {rout}", work=work)
-        if k1_variant is not None and rec["variant"] != k1_variant:
+        if rec["variant"] != k1_variant:
             raise AssertionError(f"K1 at the tables of -r {rout}: {rec['variant']}, not {k1_variant}")
         got, spec = wav.load_wav(out)
         if spec.sample_rate != rout or got.shape[0] != work:
@@ -866,6 +1003,21 @@ def unpack_phase(torch, dev, wav48: Path) -> dict:
     bad = unpack_case(torch, dev, words.view(np.int32), nb, w_lo, n_esc_pad, payload.coeff, "corrupt")
     emit("unpack", name="unpack_sealed", bit_equal=True, negative_indices=int((idx < 0).sum()),
          dropped_indices=int(((idx < -nb) | (idx >= nb)).sum()), **bad)
+
+    # Duplicates: indices that name blocks more than once (a corrupt
+    # stream's, since the encoder never writes them): repeats, -k beside
+    # nb - k, one block named by 64 rows; the last row naming a block wins.
+    w_lo, n_esc_pad = payload.w_lo, payload.n_esc_pad
+    words = rng.integers(0, 2**32, pk.sealed_len(nb, w_lo, n_esc_pad), dtype=np.uint32)
+    idx = rng.integers(-nb, nb, n_esc_pad).astype(np.int32)
+    idx[:64] = 511
+    idx[64:512:2] = -rng.integers(1, nb, 224)
+    idx[65:512:2] = idx[64:512:2] + nb
+    words[nb : nb + n_esc_pad] = idx.view(np.uint32)
+    dup = unpack_case(torch, dev, words.view(np.int32), nb, w_lo, n_esc_pad, payload.coeff, "duplicates")
+    norm = np.where(idx < 0, idx.astype(np.int64) + nb, idx)
+    emit("unpack", name="unpack_sealed", bit_equal=True, named_blocks=int(np.unique(norm).size),
+         rows_over_named_blocks=int(n_esc_pad - np.unique(norm).size), **dup)
     return rec
 
 
@@ -1021,11 +1173,13 @@ def main() -> int:
         resample_rates_phase(torch, dev)
         l1_phase(torch, dev)
         global_bank_phase(torch, dev)
+        non_finite_phase(torch, dev, wav48, wav11)
         reference_phase(torch)
         launches = main_path_runs(torch, tmp, wav48, wav11, wav25, spr)
         map_path_phase(torch, tmp, wav48, 48000, spr, "block")
-        tool = resample_tool_phase(torch, dev, tmp, ((wav48, 48000, 11025), (wav11, 11025, 48000),
-                                                     (wav25, 24960, 12480)))
+        tool = resample_tool_phase(torch, dev, tmp, ((wav48, 48000, 11025, "phase"),
+                                                     (wav11, 11025, 48000, "class"),
+                                                     (wav25, 24960, 12480, "block")))
         select_stage_phase(wav48, rec["select_peaks"]["ms"])
         rec["unpack_sealed"] = unpack_phase(torch, dev, wav48)
         ingest_launches = ingest_path_phase(torch, tmp, wav48, wav11, spr)
@@ -1048,6 +1202,9 @@ def main() -> int:
                  "library_ms": r["library_ms"]}
         if name == "polyphase_resample":
             entry["variant"] = r["variant"]
+            entry["float32"] = {key: r["float32"][key] for key in (
+                "shape", "variant", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
             entry["resample_tool"] = [
                 {key: t[key] for key in ("shape", "variant", "launches", "max_abs_err", "ms", "device_ms",
                                          "plain_ms", "bound_ms", "bound_by", "library_ms", "tool_wall_s")}

@@ -18,12 +18,18 @@
 // so chunked evaluation (any k0/out_len split) is bit-identical to one
 // launch.
 //
-// Dispatch (ops/resample.py:_k1_variant, a pure function of the shape):
-// with int16 x, "block" for l <= 32 (the 48 kHz-class rates: 8000 slow,
-// 24000, 32000, 48000, 96000, 192000) and "class" for l > 32 (the gather
-// regime l = 208..3328 at 11025/22050/37500/44100 Hz and 11011 Hz, and
-// l = 39 or 52 at 8000 Hz), each where its shared memory fits the card's
-// opt-in limit; "phase" for float32 x.
+// Dispatch (ops/resample.py:_k1_variant, a pure function of the shape, the
+// sample size and the card's opt-in shared memory): "block" for l <= 32
+// (the 48 kHz-class rates: 8000 slow, 24000, 32000, 48000, 96000, 192000,
+// and the l == 1 path) and "class" for l > 32 (the gather regime
+// l = 208..3328 at 11025/22050/37500/44100 Hz and 11011 Hz, l = 39 or 52
+// at 8000 Hz, the resample tool's l > 32 shapes), each where its shared
+// memory fits the opt-in limit; "phase" for a shape that fits neither
+// (float32 x at 192 kHz standard, 250 kHz standard) and for the float32
+// shapes where it measured faster on an H100: a block-major CTA that
+// leaves at most two an SM with T <= 2m (48000/96000 Hz fast and
+// standard, 192000 Hz fast), and l > 32 with m > 4l and the bank in
+// shared memory (the tool's 48000 -> 11025 Hz, 88200 Hz).
 //
 // "phase": one thread per output.  Persistent CTAs walk the outputs with
 // a grid stride, so the tap bank (l*T floats) and the phase tables are
@@ -41,25 +47,35 @@
 // broadcast 16-byte shared load gives four columns.  live[r] has bit g set
 // when any of W[r, 4g..4g+3] is nonzero; dead groups are skipped by a
 // warp-uniform branch.  The extra products by a zero tap leave each sum
-// unchanged: x is a finite int16, so w*x is +-0; an accumulator that
-// starts at +0 never becomes -0 under round-to-nearest, so acc + (+-0) is
-// acc exactly, before a window opens and after it closes.  (Float32 x may
-// hold inf or NaN, where 0*x is NaN: it stays on "phase".)  A CTA owns
-// 256 consecutive blocks, NB per thread (blocks_per_thread): it stages
-// its int16 input span x[I0*m, (I0+255)*m + R) into shared memory in
-// 16-byte loads (zero at or past n), the W table and the live mask, and
-// after the r loop writes the sums to a y tile over the span, which it
-// stores contiguously.  No per-output divide; 64-bit only for the span.
+// unchanged while x is finite, so w*x is +-0; an accumulator that starts
+// at +0 never becomes -0 under round-to-nearest, so acc + (+-0) is acc
+// exactly, before a window opens and after it closes.  A CTA owns 256
+// consecutive blocks, NB per thread (blocks_per_thread): it stages its
+// input span x[I0*m, (I0+255)*m + R) into shared memory in 16-byte loads
+// (zero at or past n; int16 stays int16, 8 samples a load, float32 4),
+// the W table and the live mask, and after the r loop writes the sums to
+// a y tile over the span, which it stores contiguously.  No per-output
+// divide; 64-bit only for the span.  With float32 x, 0*x is NaN for an
+// inf or a NaN: staging ORs a non-finite test over the span into the
+// barrier (__syncthreads_or), and a CTA whose span holds one sums each
+// output's own T taps, W[s_c[c] + t, c] in ascending t, as the twin does
+// (the zero taps inside the window included).  Only such CTAs take that
+// path, so a finite recording never pays for it.
 // For l <= 8 (the l == 1 path of the rates that are a multiple of the work
-// rate, and l = 2..8) the wrapper folds b = 16/l blocks into one of b*l
+// rate, and l = 2..8) the wrapper folds b <= 16/l blocks into one of b*l
 // outputs at stride b*m (ops/resample.py:k1_block_fold), so that a thread's
 // 16 accumulators hold live outputs; the kernel sees an ordinary l and m.
+// b is the one whose stride spreads a warp's span reads over the most
+// banks for the sample size (k1_fold_blocks): at l == 1, m == 2, b = 16
+// puts all lanes on one bank with float32 (16-way with int16), b = 15 on
+// 16 banks (all 32 with int16).
 //
 // "class": a thread owns one output class c and walks blocks i; its taps
 // bank[p_c[c], .] are the same in every block.  A CTA is 128 consecutive
 // classes [c0, c0+128) (blockIdx.y) by 32 consecutive blocks (blockIdx.x),
-// not persistent.  Shared memory holds only x, as f32 converted once
-// while staging: per block, the segment x[i*m + s_c[c0] + q] for q < seg
+// not persistent.  Shared memory holds only x, as f32 (int16 converted
+// once while staging, float32 copied): per block, the segment
+// x[i*m + s_c[c0] + q] for q < seg
 // (0 at or past n), in a row of S >= seg floats (K1_CLASS_STRIDES), so
 // 4*32*S bytes (class_smem; 16 KB at 11025 Hz slow, 74 KB at most,
 // 44100 Hz standard).  seg = max over 128-class tiles of
@@ -74,7 +90,10 @@
 // of all 32 blocks in registers (kClassGroup), so one tap load serves 32
 // multiply-adds, and each multiply-add is one shared load (at a
 // compile-time offset from one base register), one multiply and one add:
-// no divide, 64-bit only for the segment base.  Threads with c >= l stage
+// no divide, 64-bit only for the segment base.  Each thread multiplies
+// exactly the twin's products (bank[p_c[c], t] * x for every t < T,
+// trailing zero taps included, in ascending t), so it is bit-equal for
+// any float32 input, inf and NaN too.  Threads with c >= l stage
 // but compute nothing (they pass the one barrier).  Holding 8 or 16 sums
 // and reloading the taps per group, staging one load at a time, and
 // staging the taps in shared memory or holding them in registers, and a
@@ -179,21 +198,26 @@ constexpr int kCtaBlocks = 256;  // blocks of l outputs a CTA owns
 
 constexpr size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
 
-// The int16 samples a CTA stages: thread 255 reads up to (255*m + R - 1).
+// The samples a CTA stages: thread 255 reads up to (255*m + R - 1).
 constexpr long long block_span(long long m, int R) { return (kCtaBlocks - 1) * m + R; }
 
-// The span, staged from the 16-byte boundary at or below its first sample
-// (up to 7 samples more), then (after the r loop) the y tile of
-// kCtaBlocks*l floats.
-constexpr size_t block_tile_bytes(int l, long long m, int R) {
-  return align16(2 * (size_t)(block_span(m, R) + 7) > 4 * (size_t)kCtaBlocks * l
-                     ? 2 * (size_t)(block_span(m, R) + 7) : 4 * (size_t)kCtaBlocks * l);
+// The span of xb-byte samples, staged from the 16-byte boundary at or
+// below its first sample (up to 16/xb - 1 samples more), then (after the
+// r loop) the y tile of kCtaBlocks*l floats.
+constexpr size_t block_tile_bytes(int l, long long m, int R, int xb) {
+  return align16(xb * (size_t)(block_span(m, R) + 16 / xb - 1) > 4 * (size_t)kCtaBlocks * l
+                     ? xb * (size_t)(block_span(m, R) + 16 / xb - 1) : 4 * (size_t)kCtaBlocks * l);
 }
 
 // Dynamic shared memory: W [R][G] float4, the span/y tile, live [R] bytes.
 // Mirrored by ops/resample.py:k1_block_smem.
-constexpr size_t block_smem(int l, long long m, int R, int G) {
-  return 16 * (size_t)R * G + block_tile_bytes(l, m, R) + (size_t)R;
+constexpr size_t block_smem(int l, long long m, int R, int G, int xb) {
+  return 16 * (size_t)R * G + block_tile_bytes(l, m, R, xb) + (size_t)R;
+}
+
+// True for inf and NaN: the exponent field is all ones.
+__device__ __forceinline__ bool non_finite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
 }
 
 // Blocks per thread, NB: a thread owns blocks t, t + 256/NB, ... of its
@@ -202,16 +226,17 @@ constexpr size_t block_smem(int l, long long m, int R, int G) {
 // ran slower at 48 kHz fast (tools/kernel_ab.py on an H100).
 constexpr int blocks_per_thread(int G) { return G == 4 ? 2 : 1; }
 
-template <int G, int NB>
+template <typename T, int G, int NB>
 __global__ void __launch_bounds__(kCtaBlocks / NB)
-block_kernel(const int16_t* __restrict__ x, long long n, const float4* __restrict__ w,
-             const uint8_t* __restrict__ live, int R, int l, int m, long long i_first,
-             long long k0, long long out_len, int span, int tile_bytes,
+block_kernel(const T* __restrict__ x, long long n, const float4* __restrict__ w,
+             const uint8_t* __restrict__ live, const int* __restrict__ s_f, int taps, int R, int l,
+             int m, long long i_first, long long k0, long long out_len, int span, int tile_bytes,
              float* __restrict__ y) {
   constexpr int kT = kCtaBlocks / NB;  // threads in the CTA
+  constexpr int kPer = 16 / sizeof(T);  // samples per 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float4* s_w = reinterpret_cast<float4*>(smem_raw);
-  int16_t* s_x = reinterpret_cast<int16_t*>(smem_raw + 16 * R * G);
+  T* s_x = reinterpret_cast<T*>(smem_raw + 16 * R * G);
   float* s_y = reinterpret_cast<float*>(s_x);
   uint8_t* s_live = smem_raw + 16 * R * G + tile_bytes;
 
@@ -221,56 +246,83 @@ block_kernel(const int16_t* __restrict__ x, long long n, const float4* __restric
   for (int q = threadIdx.x; q < R; q += kT) s_live[q] = __ldg(live + q);
   // The span in 16-byte loads from the boundary at or below x + base: a
   // chunk wholly inside x[0, n) is one load, any other goes sample by
-  // sample, with 0 outside x (so x reads as 0 at or past n).
+  // sample, with 0 outside x (so x reads as 0 at or past n).  Float input
+  // also notes whether the CTA staged an inf or a NaN.
   const uintptr_t x_lo = reinterpret_cast<uintptr_t>(x);
   const uintptr_t x_hi = reinterpret_cast<uintptr_t>(x + n);
-  const uintptr_t first = x_lo + 2 * (uintptr_t)base;
+  const uintptr_t first = x_lo + sizeof(T) * (uintptr_t)base;
   const uintptr_t start = first & ~uintptr_t(15);
-  const int shift = static_cast<int>(first - start) / 2;  // samples, 0..7
-  const int chunks = (shift + span + 7) / 8;
+  const int shift = static_cast<int>(first - start) / (int)sizeof(T);  // samples, 0..kPer-1
+  const int chunks = (shift + span + kPer - 1) / kPer;
   uint4* s_x4 = reinterpret_cast<uint4*>(s_x);
+  bool bad = false;
 #pragma unroll 4
   for (int q = threadIdx.x; q < chunks; q += kT) {
     const uintptr_t a = start + 16 * (uintptr_t)q;
-    uint4 v;
     if (a >= x_lo && a + 16 <= x_hi) {
-      v = __ldg(reinterpret_cast<const uint4*>(a));
-    } else {
-      unsigned short e[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uintptr_t aj = a + 2 * j;
-        e[j] = aj >= x_lo && aj < x_hi ? *reinterpret_cast<const unsigned short*>(aj) : 0;
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(a));
+      s_x4[q] = v;
+      if constexpr (sizeof(T) == 4) {
+        bad |= non_finite(__uint_as_float(v.x)) | non_finite(__uint_as_float(v.y)) |
+               non_finite(__uint_as_float(v.z)) | non_finite(__uint_as_float(v.w));
       }
-      v = make_uint4(e[0] | (unsigned)e[1] << 16, e[2] | (unsigned)e[3] << 16,
-                     e[4] | (unsigned)e[5] << 16, e[6] | (unsigned)e[7] << 16);
+    } else {
+      T* dst = reinterpret_cast<T*>(s_x4 + q);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const uintptr_t aj = a + sizeof(T) * j;
+        const T v = aj >= x_lo && aj < x_hi ? *reinterpret_cast<const T*>(aj) : T(0);
+        dst[j] = v;
+        if constexpr (sizeof(T) == 4) bad |= non_finite(v);
+      }
     }
-    s_x4[q] = v;
   }
-  __syncthreads();
+  const bool exact = __syncthreads_or(bad);  // the same in every thread of the CTA
 
   float acc[NB][4 * G];
 #pragma unroll
   for (int b = 0; b < NB; ++b)
 #pragma unroll
     for (int c = 0; c < 4 * G; ++c) acc[b][c] = 0.f;
-  const int16_t* xr = s_x + shift + threadIdx.x * m;
-  for (int r = 0; r < R; ++r) {
-    float xv[NB];
+  const T* xr = s_x + shift + threadIdx.x * m;
+  if (!exact) {
+    // Every product by a zero tap outside a window is +-0 (x is finite)
+    // and leaves its sum unchanged.
+    for (int r = 0; r < R; ++r) {
+      float xv[NB];
 #pragma unroll
-    for (int b = 0; b < NB; ++b) xv[b] = static_cast<float>(xr[b * kT * m + r]);
-    const unsigned lv = s_live[r];
-    const float4* wr = s_w + r * G;
+      for (int b = 0; b < NB; ++b) xv[b] = to_f32(xr[b * kT * m + r]);
+      const unsigned lv = s_live[r];
+      const float4* wr = s_w + r * G;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (lv & (1u << g)) {  // the same bit in every lane: no divergence
-        const float4 wv = wr[g];
+      for (int g = 0; g < G; ++g) {
+        if (lv & (1u << g)) {  // the same bit in every lane: no divergence
+          const float4 wv = wr[g];
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            acc[b][4 * g + 0] = __fadd_rn(acc[b][4 * g + 0], __fmul_rn(wv.x, xv[b]));
+            acc[b][4 * g + 1] = __fadd_rn(acc[b][4 * g + 1], __fmul_rn(wv.y, xv[b]));
+            acc[b][4 * g + 2] = __fadd_rn(acc[b][4 * g + 2], __fmul_rn(wv.z, xv[b]));
+            acc[b][4 * g + 3] = __fadd_rn(acc[b][4 * g + 3], __fmul_rn(wv.w, xv[b]));
+          }
+        }
+      }
+    }
+  } else if constexpr (sizeof(T) == 4) {
+    // An inf or a NaN in the span: 0 * x would not vanish, so each output
+    // sums exactly its own T taps, W[s_f[c] + t, c] = bank[p_c[c], t], in
+    // ascending t, as the plain twin does (trailing zero taps included).
+    const float* s_wf = reinterpret_cast<const float*>(s_w);
+#pragma unroll
+    for (int c = 0; c < 4 * G; ++c) {
+      if (c < l) {
+        const int sc = __ldg(s_f + c);
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
-          acc[b][4 * g + 0] = __fadd_rn(acc[b][4 * g + 0], __fmul_rn(wv.x, xv[b]));
-          acc[b][4 * g + 1] = __fadd_rn(acc[b][4 * g + 1], __fmul_rn(wv.y, xv[b]));
-          acc[b][4 * g + 2] = __fadd_rn(acc[b][4 * g + 2], __fmul_rn(wv.z, xv[b]));
-          acc[b][4 * g + 3] = __fadd_rn(acc[b][4 * g + 3], __fmul_rn(wv.w, xv[b]));
+          const float* xs = xr + b * kT * m + sc;
+          float a = 0.f;
+          for (int t = 0; t < taps; ++t) a = __fadd_rn(a, __fmul_rn(s_wf[(sc + t) * 4 * G + c], xs[t]));
+          acc[b][c] = a;
         }
       }
     }
@@ -291,13 +343,13 @@ block_kernel(const int16_t* __restrict__ x, long long n, const float4* __restric
   for (long long k = lo + threadIdx.x; k < hi; k += kT) y[k - k0] = s_y[k - kb];
 }
 
-template <int G>
-cudaError_t launch_block(const int16_t* x, long long n, const float4* w, const uint8_t* live,
-                         int R, int l, long long m, long long k0, long long out_len, float* y,
+template <typename T, int G>
+cudaError_t launch_block(const T* x, long long n, const float4* w, const uint8_t* live, const int* s_f,
+                         int taps, int R, int l, long long m, long long k0, long long out_len, float* y,
                          cudaStream_t stream) {
   constexpr int NB = blocks_per_thread(G);
-  auto kern = block_kernel<G, NB>;
-  const size_t smem = block_smem(l, m, R, G);
+  auto kern = block_kernel<T, G, NB>;
+  const size_t smem = block_smem(l, m, R, G, sizeof(T));
   cudaError_t e;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -307,8 +359,8 @@ cudaError_t launch_block(const int16_t* x, long long n, const float4* w, const u
   const long long blocks = (k0 + out_len - 1) / l + 1 - i_first;
   const long long grid = (blocks + kCtaBlocks - 1) / kCtaBlocks;
   kern<<<(unsigned)grid, kCtaBlocks / NB, smem, stream>>>(
-      x, n, w, live, R, l, (int)m, i_first, k0, out_len, (int)block_span(m, R),
-      (int)block_tile_bytes(l, m, R), y);
+      x, n, w, live, s_f, taps, R, l, (int)m, i_first, k0, out_len, (int)block_span(m, R),
+      (int)block_tile_bytes(l, m, R, sizeof(T)), y);
   return cudaGetLastError();
 }
 
@@ -331,9 +383,9 @@ constexpr int kClassGroup = 32;     // blocks whose sums a thread holds at once
 // ops/resample.py:k1_class_smem.
 constexpr size_t class_smem(int stride) { return sizeof(float) * kClassBlocks * (size_t)stride; }
 
-template <int kStride>
+template <typename T, int kStride>
 __global__ void __launch_bounds__(kClassThreads)
-class_kernel(const int16_t* __restrict__ x, long long n, const float* __restrict__ wc,
+class_kernel(const T* __restrict__ x, long long n, const float* __restrict__ wc,
              const int* __restrict__ s_c, int l, int taps, long long m, int seg,
              long long i_first, long long k0, long long out_len, float* __restrict__ y) {
   extern __shared__ float s_x[];
@@ -350,7 +402,7 @@ class_kernel(const int16_t* __restrict__ x, long long n, const float* __restrict
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const long long p = base + (b0 + j) * m + q;
-        v[j] = p < n ? static_cast<float>(__ldg(x + p)) : 0.f;
+        v[j] = p < n ? to_f32(__ldg(x + p)) : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) s_x[(b0 + j) * kStride + q] = v[j];
@@ -385,11 +437,11 @@ class_kernel(const int16_t* __restrict__ x, long long n, const float* __restrict
   }
 }
 
-template <int kStride>
-cudaError_t launch_class(const int16_t* x, long long n, const float* wc, const int* s_c, int l,
+template <typename T, int kStride>
+cudaError_t launch_class(const T* x, long long n, const float* wc, const int* s_c, int l,
                          int taps, long long m, int seg, long long k0, long long out_len, float* y,
                          cudaStream_t stream) {
-  auto kern = class_kernel<kStride>;
+  auto kern = class_kernel<T, kStride>;
   const size_t smem = class_smem(kStride);
   cudaError_t e;
   if (smem > 48 * 1024) {
@@ -444,38 +496,56 @@ extern "C" int polyphase_resample(const void* x, int x_is_i16, long long n,
   return (int)e;
 }
 
-// The block-major variant: int16 x, the W table w[R][4G] and live[R] of
-// ops/resample.py:k1_block_table, G = 4 (l <= 16) or 8 (l <= 32).
-// Returns cudaErrorInvalidValue for any other G or l.
-extern "C" int polyphase_resample_block(const void* x, long long n, const void* w,
-                                        const void* live, int G, int R, int l, long long m,
-                                        long long k0, long long out_len, void* y, void* stream) {
+// The block-major variant: int16 or float32 x, the W table w[R][4G] and
+// live[R] of ops/resample.py:k1_block_table, G = 4 (l <= 16) or 8
+// (l <= 32), and the launch's first input offsets s_f[l] (after
+// ops/resample.py:k1_block_fold) with the taps T of each output, which a
+// CTA whose float span holds an inf or a NaN sums exactly.  Returns
+// cudaErrorInvalidValue for any other G or l.
+extern "C" int polyphase_resample_block(const void* x, int x_is_i16, long long n, const void* w,
+                                        const void* live, const void* s_f, int taps, int G, int R,
+                                        int l, long long m, long long k0, long long out_len, void* y,
+                                        void* stream) {
   if (out_len <= 0) return 0;
-  if (l < 1 || l > 4 * G || R < 1) return (int)cudaErrorInvalidValue;
-  const int16_t* xs = static_cast<const int16_t*>(x);
+  if (l < 1 || l > 4 * G || R < 1 || taps < 1) return (int)cudaErrorInvalidValue;
   const float4* ws = static_cast<const float4*>(w);
   const uint8_t* lv = static_cast<const uint8_t*>(live);
+  const int* sf = static_cast<const int*>(s_f);
   float* out = static_cast<float*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G == 4) return (int)launch_block<4>(xs, n, ws, lv, R, l, m, k0, out_len, out, st);
-  if (G == 8) return (int)launch_block<8>(xs, n, ws, lv, R, l, m, k0, out_len, out, st);
+#define K1_BLOCK(T, GG) \
+  return (int)launch_block<T, GG>(static_cast<const T*>(x), n, ws, lv, sf, taps, R, l, m, k0, out_len, out, st)
+  if (G == 4) {
+    if (x_is_i16) K1_BLOCK(int16_t, 4);
+    K1_BLOCK(float, 4);
+  }
+  if (G == 8) {
+    if (x_is_i16) K1_BLOCK(int16_t, 8);
+    K1_BLOCK(float, 8);
+  }
+#undef K1_BLOCK
   return (int)cudaErrorInvalidValue;
 }
 
-// The class-major variant: int16 x, the tap table wc[T][l] of
+// The class-major variant: int16 or float32 x, the tap table wc[T][l] of
 // ops/resample.py:k1_class_table and its segment length seg.
-extern "C" int polyphase_resample_class(const void* x, long long n, const void* wc,
+extern "C" int polyphase_resample_class(const void* x, int x_is_i16, long long n, const void* wc,
                                         const void* s_c, int l, int taps, long long m, int seg,
                                         long long k0, long long out_len, void* y, void* stream) {
   if (out_len <= 0) return 0;
   if (l < 1 || taps < 1 || seg < taps) return (int)cudaErrorInvalidValue;
-  const int16_t* xs = static_cast<const int16_t*>(x);
   const float* w = static_cast<const float*>(wc);
   const int* sc = static_cast<const int*>(s_c);
   float* out = static_cast<float*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K1_LAUNCH(S) \
-  if (seg <= S) return (int)launch_class<S>(xs, n, w, sc, l, taps, m, seg, k0, out_len, out, st);
+#define K1_LAUNCH(S)                                                                                  \
+  if (seg <= S) {                                                                                   \
+    if (x_is_i16)                                                                                   \
+      return (int)launch_class<int16_t, S>(static_cast<const int16_t*>(x), n, w, sc, l, taps, m, seg, \
+                                           k0, out_len, out, st);                                    \
+    return (int)launch_class<float, S>(static_cast<const float*>(x), n, w, sc, l, taps, m, seg, k0,   \
+                                       out_len, out, st);                                            \
+  }
   K1_CLASS_STRIDES(K1_LAUNCH)
 #undef K1_LAUNCH
   return (int)cudaErrorInvalidValue;  // seg past the largest stride

@@ -28,7 +28,9 @@ In torch the sealed buffer is an ``int32`` tensor, a bit view of the u32
 words (``torch.uint32`` has almost no CPU ops).  The escape indices are
 read as int32, so an index ``>= 2^31`` is negative; as in the JAX
 graph, an index in ``[-nb, 0)`` counts from the end and any index
-outside ``[-nb, nb)`` is dropped (the padding slots hold ``nb``).  The
+outside ``[-nb, nb)`` is dropped (the padding slots hold ``nb``).  Where
+several rows name one block (the encoder never writes that, a corrupt
+stream can), the last of them wins, as JAX's scatter on the CPU does.  The
 recurrence runs in int32 with wraparound and an arithmetic ``>> 14``, so
 a corrupt stream gives garbage samples, never a crash.
 """
@@ -276,7 +278,13 @@ def unpack_sealed_plain(buf: torch.Tensor, nb: int, w_lo: int, n_esc_pad: int, c
     idx = esc_idx.to(torch.int64)
     idx = torch.where(idx < 0, idx + nb, idx)
     keep = (idx >= 0) & (idx < nb)
-    out[idx[keep]] = esc_rows[keep]
+    # Where several rows name one block, the last row wins, as JAX's
+    # scatter does on the CPU: each block's largest row number (a max
+    # scatter, whose result does not depend on order), then one gather.
+    last = torch.full((nb,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, idx[keep], torch.arange(n_esc_pad, device=dev)[keep], "amax")
+    hit = last >= 0
+    out[hit] = esc_rows[last[hit]]
     return out.reshape(-1)
 
 
@@ -299,8 +307,8 @@ def unpack_sealed(buf: torch.Tensor, nb: int, w_lo: int, n_esc_pad: int, coeff: 
     """Sealed buffer (int32 bit view of the u32 words) -> the i16 work
     signal ``[nb * 128]``.
 
-    A CUDA tensor launches kernel K4 (``csrc/unpack.cu``: the blocks,
-    then the escape rows); a CPU tensor runs the plain twin."""
+    A CUDA tensor launches kernel K4 (``csrc/unpack.cu``: one launch,
+    escape rows included); a CPU tensor runs the plain twin."""
     _check(buf, nb, w_lo, n_esc_pad)
     if buf.device.type == "cpu":
         return unpack_sealed_plain(buf, nb, w_lo, n_esc_pad, coeff)

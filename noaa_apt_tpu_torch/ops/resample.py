@@ -12,18 +12,19 @@ with ``x`` read as 0 past its end (the reference's out-of-range skip).
 
 The JAX package picks among four TPU/CPU mappings (conv, block matmul,
 packed matmul, gather); the port has one kernel, K1 (``csrc/resample.cu``),
-in three variants that :func:`_k1_variant` picks by shape: "block" (a
-thread owns the ``l`` outputs of one block, over the tap table of
-:func:`k1_block_table`; for ``l <= 8`` the launch folds ``16 // l``
-blocks into one, :func:`k1_block_fold`) for ``l <= 32`` with int16
-input, "class" (a
-thread owns one output class ``c`` and walks blocks, over the
-class-major tap table of :func:`k1_class_table`) for ``l > 32`` with
-int16 input, and "phase" (a thread per output) for float32 input.  All
-sum each output's taps in one fixed order, so chunked evaluation is
-bit-stable in every regime, and all are bit-equal to the plain twin,
+in three variants that :func:`_k1_variant` picks by shape, sample size
+and the card's opt-in shared memory: "block" (a thread owns the ``l``
+outputs of one block, over the tap table of :func:`k1_block_table`; for
+``l <= 8`` the launch folds up to ``16 // l`` blocks into one,
+:func:`k1_block_fold`) for ``l <= 32``, "class" (a thread owns one
+output class ``c`` and walks blocks, over the class-major tap table of
+:func:`k1_class_table`) for ``l > 32``, and "phase" (a thread per
+output) for a shape whose CTA fits neither and for the float32 shapes
+where "phase" measured faster (see :func:`_k1_variant`).  All sum each
+output's taps in one fixed order, so chunked evaluation is bit-stable in
+every regime, and all are bit-equal to the plain twin,
 :func:`polyphase_resample_plain`, which sums the same products in the
-same order.
+same order, for any float32 input (inf, NaN, -0.0 and subnormals too).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import weakref
 from dataclasses import dataclass
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -156,19 +158,40 @@ K1_BLOCK_MAX_L = 32  # G = 8 groups of 4 accumulators a block
 K1_FOLD_LANES = 16  # accumulators a thread holds per block at G = 4
 
 
-def k1_block_fold(p_c, s_c, m: int) -> tuple[np.ndarray, np.ndarray, int]:
-    """``(p_c, s_c, m)`` of the block-major launch.  For ``l <= 8``,
-    ``b = 16 // l`` consecutive blocks of ``l`` outputs form one block of
+def k1_bank_ways(stride: int, x_bytes: int) -> int:
+    """Shared-memory bank conflict of a warp's read of the staged span
+    when lane ``i`` reads sample ``i * stride`` of ``x_bytes`` bytes: the
+    most distinct 4-byte words that fall on one of the 32 banks."""
+    words = np.arange(32) * stride * x_bytes // 4
+    return max(np.unique(words[words % 32 == k]).size for k in np.unique(words % 32))
+
+
+def k1_fold_blocks(l: int, m: int, x_bytes: int = 2) -> int:
+    """The blocks ``b`` that :func:`k1_block_fold` joins into one: 1 for
+    ``l > 8``; else the ``b <= 16 // l`` whose warp reads of the staged
+    span cost the least per block of output: the bank conflict of the
+    stride ``b*m`` (:func:`k1_bank_ways`) over ``b``, the largest such
+    ``b`` on a tie.  At l == 1, m == 2, ``b = 16`` would put all 32 lanes
+    on one bank with float32 samples (16 ways with int16); ``b = 15``
+    gives 2 ways (float32) and none (int16)."""
+    if l > K1_FOLD_LANES // 2:
+        return 1
+    return min(range(K1_FOLD_LANES // l, 0, -1), key=lambda b: Fraction(k1_bank_ways(b * m, x_bytes), b))
+
+
+def k1_block_fold(p_c, s_c, m: int, x_bytes: int = 2) -> tuple[np.ndarray, np.ndarray, int]:
+    """``(p_c, s_c, m)`` of the block-major launch for ``x_bytes``-byte
+    samples.  For ``l <= 8``, ``b`` consecutive blocks of ``l`` outputs
+    (:func:`k1_fold_blocks`, at most ``16 // l``) form one block of
     ``b*l``: output ``k = i*b*l + j*l + c`` has its first input at
     ``s_c[c] + j*m + i*(b*m)``, so the folded classes are ``p_c`` tiled
     ``b`` times, ``s_c[c] + j*m``, and the stride is ``b*m``.  Each
     output keeps its taps and their order, so the sums are unchanged;
-    the small l (1 on the l == 1 path) then fills a thread's 16
+    the small l (1 on the l == 1 path) then fills most of a thread's 16
     accumulators, where it would leave ``16 - l`` of them dead, and a CTA
     owns ``b`` times the outputs.  Other l pass through."""
     p_c, s_c = np.asarray(p_c, np.int64), np.asarray(s_c, np.int64)
-    l = p_c.shape[0]
-    b = K1_FOLD_LANES // l if l <= K1_FOLD_LANES // 2 else 1
+    b = k1_fold_blocks(p_c.shape[0], m, x_bytes)
     j = np.arange(b, dtype=np.int64)[:, None]
     return np.tile(p_c, b), (s_c[None, :] + j * m).reshape(-1), b * m
 
@@ -198,13 +221,14 @@ def k1_block_table(bank, p_c, s_c) -> tuple[np.ndarray, np.ndarray, int]:
     return w, live, g
 
 
-def k1_block_smem(l: int, m: int, r_len: int, g: int) -> int:
+def k1_block_smem(l: int, m: int, r_len: int, g: int, x_bytes: int = 2) -> int:
     """Dynamic shared memory of one block-major CTA, in bytes: the W
-    table, the int16 input span from the 16-byte boundary at or below
-    its start (then the y tile over it) and the live mask.  Mirrors
-    ``block_smem`` in ``csrc/resample.cu``."""
-    span = (K1_CTA_BLOCKS - 1) * m + r_len + 7
-    tile = max(2 * span, 4 * K1_CTA_BLOCKS * l)
+    table, the input span of ``x_bytes``-byte samples (2 for int16, 4
+    for float32) from the 16-byte boundary at or below its start (then
+    the y tile over it) and the live mask.  Mirrors ``block_smem`` in
+    ``csrc/resample.cu``."""
+    span = (K1_CTA_BLOCKS - 1) * m + r_len + 16 // x_bytes - 1
+    tile = max(x_bytes * span, 4 * K1_CTA_BLOCKS * l)
     return 16 * r_len * g + (tile + 15) // 16 * 16 + r_len
 
 
@@ -238,15 +262,35 @@ def k1_class_smem(seg: int) -> int:
     return 4 * K1_CLASS_BLOCKS * next((s for s in K1_CLASS_STRIDES if s >= seg), seg)
 
 
-def _k1_variant(l: int, dtype: torch.dtype, smem_bytes: int, optin: int) -> str:
-    """K1's variant for a shape: with int16 input, ``"block"`` for
-    ``l <= 32`` and ``"class"`` for ``l > 32``, where that variant's CTA
-    (``smem_bytes``) fits ``optin`` bytes of shared memory; else
-    ``"phase"``.  (Float32 input may hold inf or NaN, where the block
-    variant's products by a zero tap would not vanish; it stays on
-    "phase".)"""
-    if dtype != torch.int16 or smem_bytes > optin:
+def k1_phase_smem(l: int, taps: int) -> int:
+    """Shared memory of a "phase" CTA that stages the tap bank and the
+    phase tables, in bytes; a larger bank is read from global memory.
+    Mirrors ``polyphase_resample`` in ``csrc/resample.cu``."""
+    return 4 * l * taps + 8 * l
+
+
+def _k1_variant(l: int, m: int, taps: int, x_bytes: int, smem_bytes: int, optin: int) -> str:
+    """K1's variant for ``l`` output classes, input stride ``m``, ``taps``
+    taps and ``x_bytes``-byte samples: ``"block"`` for ``l <= 32`` and
+    ``"class"`` for ``l > 32``, where that variant's CTA (``smem_bytes``,
+    which depends on the sample size) fits ``optin`` bytes of shared
+    memory; else ``"phase"``.  Float32 input also takes ``"phase"`` where
+    it ran faster on an H100 (``tools/kernel_ab.py``, PERF.md section 6):
+    at ``l <= 32`` where a block-major CTA takes over a third of the
+    opt-in (at most two CTAs an SM: the 4-byte span) and ``taps <= 2 m``
+    (48000 and 96000 Hz fast and standard, 192000 Hz fast); at ``l > 32``
+    with ``m > 4 l`` where the bank fits in shared memory (the resample
+    tool's 48000 -> 11025 Hz; 50000, 88200, 100000, 176400 Hz), as before
+    this variant took float32; with the bank in global memory "phase" ran
+    ten times slower than "class" (62500 Hz standard).  Int16 input runs
+    "block" and "class" wherever they fit."""
+    if smem_bytes > optin:
         return "phase"
+    if x_bytes == 4:
+        if l <= K1_BLOCK_MAX_L and 3 * smem_bytes > optin and taps <= 2 * m:
+            return "phase"
+        if l > K1_BLOCK_MAX_L and m > 4 * l and k1_phase_smem(l, taps) <= optin:
+            return "phase"
     return "block" if l <= K1_BLOCK_MAX_L else "class"
 
 
@@ -254,6 +298,7 @@ def _k1_variant(l: int, dtype: torch.dtype, smem_bytes: int, optin: int) -> str:
 class _BlockTable:
     w: torch.Tensor  # f32[R, 4G] on the bank's device
     live: torch.Tensor  # u8[R]
+    s_f: torch.Tensor  # i32[l]: the launch's first input offsets (k1_block_fold)
     g: int
     r_len: int
     l: int  # output classes and input stride of the launch (k1_block_fold)
@@ -266,11 +311,12 @@ class _ClassTable:
     seg: int
 
 
-def _build_block(bank: np.ndarray, p_c: np.ndarray, s_c: np.ndarray, dev, m: int) -> _BlockTable:
-    p_c, s_c, m = k1_block_fold(p_c, s_c, m)
+def _build_block(bank: np.ndarray, p_c: np.ndarray, s_c: np.ndarray, dev, m: int,
+                 x_bytes: int) -> _BlockTable:
+    p_c, s_c, m = k1_block_fold(p_c, s_c, m, x_bytes)
     w, live, g = k1_block_table(bank, p_c, s_c)
-    return _BlockTable(torch.from_numpy(w).to(dev), torch.from_numpy(live).to(dev), g, w.shape[0],
-                       p_c.shape[0], m)
+    return _BlockTable(torch.from_numpy(w).to(dev), torch.from_numpy(live).to(dev),
+                       torch.from_numpy(s_c.astype(np.int32)).to(dev), g, w.shape[0], p_c.shape[0], m)
 
 
 def _build_class(bank: np.ndarray, p_c: np.ndarray, s_c: np.ndarray, dev) -> _ClassTable:
@@ -314,8 +360,8 @@ def _kernel(name: str):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f.argtypes = {
             "polyphase_resample": [p, i, ll, p, p, p, i, i, ll, ll, ll, p, p],
-            "polyphase_resample_block": [p, ll, p, p, i, i, i, ll, ll, ll, p, p],
-            "polyphase_resample_class": [p, ll, p, p, i, i, ll, i, ll, ll, p, p],
+            "polyphase_resample_block": [p, i, ll, p, p, p, i, i, i, i, ll, ll, ll, p, p],
+            "polyphase_resample_class": [p, i, ll, p, p, i, i, ll, i, ll, ll, p, p],
             "resample_smem_optin": [ctypes.POINTER(ctypes.c_int)],
         }[name]
         f.restype = ctypes.c_int
@@ -347,34 +393,32 @@ def polyphase_resample(x: torch.Tensor, bank: torch.Tensor, p_c: torch.Tensor,
         polyphase_resample.last_variant = "plain"
         return polyphase_resample_plain(x, bank, p_c, s_c, m, out_len, k0)
     l = bank.shape[0]
-    tab, smem = None, 0
-    if x.dtype == torch.int16:
-        if l <= K1_BLOCK_MAX_L:
-            tab = _table("block", bank, p_c, s_c, m)
-            smem = k1_block_smem(tab.l, tab.m, tab.r_len, tab.g)
-        else:
-            tab = _table("class", bank, p_c, s_c)
-            smem = k1_class_smem(tab.seg)
-    variant = _k1_variant(l, x.dtype, smem, _smem_optin(x.device))
+    if l <= K1_BLOCK_MAX_L:
+        tab = _table("block", bank, p_c, s_c, m, x.element_size())
+        smem = k1_block_smem(tab.l, tab.m, tab.r_len, tab.g, x.element_size())
+    else:
+        tab = _table("class", bank, p_c, s_c)
+        smem = k1_class_smem(tab.seg)
+    variant = _k1_variant(l, m, bank.shape[1], x.element_size(), smem, _smem_optin(x.device))
     x, bank, p_c, s_c = (t.contiguous() for t in (x, bank, p_c, s_c))
     y = torch.empty(out_len, dtype=torch.float32, device=x.device)
     if out_len == 0:
         return y
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    i16 = int(x.dtype == torch.int16)
     with torch.cuda.device(x.device):
         if variant == "block":
             rc = _kernel("polyphase_resample_block")(
-                x.data_ptr(), x.shape[0], tab.w.data_ptr(), tab.live.data_ptr(), tab.g, tab.r_len,
-                tab.l, tab.m, k0, out_len, y.data_ptr(), stream)
+                x.data_ptr(), i16, x.shape[0], tab.w.data_ptr(), tab.live.data_ptr(), tab.s_f.data_ptr(),
+                bank.shape[1], tab.g, tab.r_len, tab.l, tab.m, k0, out_len, y.data_ptr(), stream)
         elif variant == "class":
             rc = _kernel("polyphase_resample_class")(
-                x.data_ptr(), x.shape[0], tab.wc.data_ptr(), s_c.data_ptr(), l, bank.shape[1], m,
+                x.data_ptr(), i16, x.shape[0], tab.wc.data_ptr(), s_c.data_ptr(), l, bank.shape[1], m,
                 tab.seg, k0, out_len, y.data_ptr(), stream)
         else:
             rc = _kernel("polyphase_resample")(
-                x.data_ptr(), int(x.dtype == torch.int16), x.shape[0], bank.data_ptr(),
-                p_c.data_ptr(), s_c.data_ptr(), l, bank.shape[1], m, k0, out_len,
-                y.data_ptr(), stream)
+                x.data_ptr(), i16, x.shape[0], bank.data_ptr(), p_c.data_ptr(), s_c.data_ptr(), l,
+                bank.shape[1], m, k0, out_len, y.data_ptr(), stream)
     polyphase_resample.launches += 1
     polyphase_resample.last_variant = variant
     _build.check(rc, f"polyphase_resample ({variant})")

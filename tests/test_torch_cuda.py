@@ -42,32 +42,44 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (profile, rate, variant): "phase" cases feed float32 input, the others int16.
-K1_CASES = [("standard", 11025, "class"), ("standard", 48000, "block"), ("fast", 48000, "block"),
-            ("slow", 48000, "block"), ("slow", 192000, "block"), ("slow", 8000, "block"),
-            ("fast", 8000, "class"), ("fast", 11025, "class"), ("slow", 11025, "class"),
-            ("standard", 22050, "class"), ("slow", 44100, "class"), ("slow", 11011, "class"),
-            ("slow", 11011, "phase")]
+# (profile, rate, variant, input dtype): the same variant for both dtypes,
+# except where float32 runs "phase" (ops/resample.py:_k1_variant): 192 kHz
+# standard, whose 4-byte span passes the opt-in; 48 kHz fast, where a
+# block-major CTA leaves two an SM; 88200 Hz standard (l > 32, m > 4 l).
+# 250 kHz standard runs "phase" for both, no class-major CTA fitting, with
+# its 241 KB bank in global memory; 62500 Hz standard runs "class", as
+# "phase" would read its 245 KB bank from there.
+K1_CASES = [("standard", 11025, "class", "int16"), ("standard", 48000, "block", "int16"),
+            ("fast", 48000, "block", "int16"), ("slow", 48000, "block", "int16"),
+            ("slow", 192000, "block", "int16"), ("slow", 8000, "block", "int16"),
+            ("fast", 8000, "class", "int16"), ("fast", 11025, "class", "int16"),
+            ("slow", 11025, "class", "int16"), ("standard", 22050, "class", "int16"),
+            ("slow", 44100, "class", "int16"), ("slow", 11011, "class", "int16"),
+            ("slow", 11011, "class", "float32"), ("standard", 11025, "class", "float32"),
+            ("standard", 48000, "block", "float32"), ("fast", 48000, "phase", "float32"),
+            ("slow", 48000, "block", "float32"), ("slow", 192000, "block", "float32"),
+            ("standard", 192000, "phase", "float32"), ("slow", 44100, "class", "float32"),
+            ("fast", 16000, "block", "float32"), ("standard", 88200, "class", "int16"),
+            ("standard", 88200, "phase", "float32"), ("standard", 62500, "class", "float32"),
+            ("standard", 250000, "phase", "int16"), ("standard", 250000, "phase", "float32")]
 
 
-def _k1_inputs(profile_name: str, rate_hz: int, device, variant: str = "block"):
+def _k1_inputs(profile_name: str, rate_hz: int, device, dtype: str = "int16"):
     t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
-    x = torch.from_numpy(_pcm(rate_hz)).to(device)
-    if variant == "phase":
-        x = x.to(torch.float32)
+    x = torch.from_numpy(_pcm(rate_hz)).to(device).to(getattr(torch, dtype))
     args = [torch.from_numpy(a).to(device) for a in (t.bank, t.p_c, t.s_c)]
     return t, x, args
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("profile_name,rate_hz,variant", K1_CASES)
-def test_cuda_resample_kernel_bit_equal(cuda_device, profile_name, rate_hz, variant):
-    """Every K1 variant against the plain twin.  slow/192000 Hz has
-    T = 857 (126 KB of shared memory per block-major CTA); slow/11011 Hz
-    has l = 1600 and a 320 KB bank: the class variant reads its table
-    from global memory, and with float32 input the phase variant reads
-    the bank from global memory, past a block's shared memory."""
-    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, variant)
+@pytest.mark.parametrize("profile_name,rate_hz,variant,dtype", K1_CASES)
+def test_cuda_resample_kernel_bit_equal(cuda_device, profile_name, rate_hz, variant, dtype):
+    """Every K1 variant against the plain twin, int16 and float32.
+    slow/192000 Hz has T = 857 (126 KB of shared memory per block-major
+    CTA with int16, 189 KB with float32); slow/11011 Hz has l = 1600 and
+    a 320 KB bank: the class variant reads its table from global memory;
+    standard/250000 Hz runs "phase" with its bank in global memory."""
+    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, dtype)
     n_out = t.work_len(x.shape[0])
     got = rs.polyphase_resample(x, *args, t.m, n_out)
     assert rs.polyphase_resample.last_variant == variant
@@ -75,11 +87,34 @@ def test_cuda_resample_kernel_bit_equal(cuda_device, profile_name, rate_hz, vari
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("profile_name,rate_hz,variant", K1_CASES[:4])
-def test_cuda_resample_kernel_ragged_tail(cuda_device, profile_name, rate_hz, variant):
+@pytest.mark.parametrize("profile_name,rate_hz,variant", [("standard", 48000, "block"), ("fast", 16000, "block"),
+                                                          ("standard", 11025, "class"),
+                                                          ("slow", 44100, "class")])
+def test_cuda_resample_float_non_finite_bit_equal(cuda_device, profile_name, rate_hz, variant):
+    """Float32 input holding NaN, +-inf, -0.0, subnormals and +-3e38, at a
+    block-major CTA's first sample and inside spans: bit for bit the twin
+    (int32 views; ``torch.equal`` fails on NaN), and the NaN outputs stay
+    where the twin has them."""
+    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, "float32")
+    n = x.shape[0]
+    specials = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0, 1e-45, -3e-42, 3e38, -3e38])
+    cta = rs.K1_CTA_BLOCKS * t.m
+    at = torch.tensor([cta, cta + 1, 3 * t.m + 2, n // 2, n // 2 + 1, n // 3, 7, n - 3]) % n
+    x[at] = specials.to(cuda_device)
+    n_out = t.work_len(n)
+    got = rs.polyphase_resample(x, *args, t.m, n_out)
+    assert rs.polyphase_resample.last_variant == variant
+    want = rs.polyphase_resample_plain(x, *args, t.m, n_out)
+    assert bool(torch.isnan(want).any())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile_name,rate_hz,variant,dtype", K1_CASES[:4] + K1_CASES[13:15])
+def test_cuda_resample_kernel_ragged_tail(cuda_device, profile_name, rate_hz, variant, dtype):
     """The reference's full output count, whose last windows pass n (x
     reads as 0 there), and a length off the 256-block (and 32-block) CTA."""
-    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, variant)
+    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, dtype)
     for n_out in (rs.out_len_for(x.shape[0], t.l, t.m, t.offset), 256 * t.l + 5):
         got = rs.polyphase_resample(x, *args, t.m, n_out)
         assert rs.polyphase_resample.last_variant == variant
@@ -87,10 +122,10 @@ def test_cuda_resample_kernel_ragged_tail(cuda_device, profile_name, rate_hz, va
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("profile_name,rate_hz,variant", K1_CASES[:4])
-def test_cuda_resample_kernel_chunked_k0(cuda_device, profile_name, rate_hz, variant):
+@pytest.mark.parametrize("profile_name,rate_hz,variant,dtype", K1_CASES[:4] + K1_CASES[13:15])
+def test_cuda_resample_kernel_chunked_k0(cuda_device, profile_name, rate_hz, variant, dtype):
     """Chunks at k0 off a block and off a 256-block CTA equal one launch."""
-    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, variant)
+    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, dtype)
     n_out = t.work_len(x.shape[0])
     full = rs.polyphase_resample(x, *args, t.m, n_out)
     cuts = [0, 7, n_out // 3 + 3, n_out - t.l, n_out]
@@ -107,18 +142,18 @@ L1_CASES = [("standard", 24960, 2), ("standard", 12480, 1), ("slow", 41600, 2)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("profile_name,rate_hz,m", L1_CASES)
-@pytest.mark.parametrize("variant", ["block", "phase"])
-def test_cuda_resample_l1_bit_equal(cuda_device, profile_name, rate_hz, m, variant):
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_cuda_resample_l1_bit_equal(cuda_device, profile_name, rate_hz, m, dtype):
     """K1 as the causal FIR decimated by m (l = 1, which the block
     variant's launch folds to 16 outputs a block), over ``causal_input``:
-    int16 on "block", float32 on "phase", the work length and a length
-    off the CTA."""
-    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, variant)
+    int16 and float32 on "block", the work length and a length off the
+    CTA."""
+    t, x, args = _k1_inputs(profile_name, rate_hz, cuda_device, dtype)
     assert (t.l, t.m) == (1, m)
     xc = rs.causal_input(x, t.bank.shape[1])
     for n_out in (t.work_len(x.shape[0]), 256 * 2 + 5):
         got = rs.polyphase_resample(xc, *args, t.m, n_out)
-        assert rs.polyphase_resample.last_variant == variant
+        assert rs.polyphase_resample.last_variant == "block"
         assert torch.equal(got, rs.polyphase_resample_plain(xc, *args, t.m, n_out)), n_out
         assert got[0].item() == 0.0
 
@@ -161,13 +196,16 @@ def test_cuda_telemetry_render_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_resample_float_input_takes_phase(cuda_device):
-    """Float32 input stays on the phase variant, even where l <= 32."""
+def test_cuda_resample_float_input_takes_block(cuda_device):
+    """Float32 input of int16 values runs "block" at 48 kHz, as int16 does,
+    and gives the int16 launch's outputs bit for bit (int16 -> f32 is
+    exact, and both sum the same products in the same order)."""
     t, x, args = _k1_inputs("standard", 48000, cuda_device)
-    xf = x.to(torch.float32)
-    got = rs.polyphase_resample(xf, *args, t.m, 5000)
-    assert rs.polyphase_resample.last_variant == "phase"
-    assert torch.equal(got, rs.polyphase_resample(x, *args, t.m, 5000))
+    want = rs.polyphase_resample(x, *args, t.m, 5000)
+    assert rs.polyphase_resample.last_variant == "block"
+    got = rs.polyphase_resample(x.to(torch.float32), *args, t.m, 5000)
+    assert rs.polyphase_resample.last_variant == "block"
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -306,9 +344,10 @@ def test_cuda_select_overflow_raises(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rin,rout", [(48000, 11025), (11025, 48000), (24960, 12480)])
 def test_cuda_resample_tool_matches_cpu(cuda_device, tmp_path, rin, rout):
-    """The WAV -> WAV tool on the card (K1 "phase" on its float32 samples)
-    writes the same WAV as on the CPU: the kernel is bit-equal to its
-    twin."""
+    """The WAV -> WAV tool on the card (K1 on its float32 samples:
+    "phase" at 48000 -> 11025, whose m > 4 l; "class" at 11025 -> 48000;
+    "block" at l == 1) writes the same WAV as on the CPU: the kernel is
+    bit-equal to its twin."""
     from noaa_apt_tpu_torch.graph import resample_tool
     from noaa_apt_tpu_torch.io import config as cfg
     from noaa_apt_tpu_torch.io import wav
@@ -321,7 +360,7 @@ def test_cuda_resample_tool_matches_cpu(cuda_device, tmp_path, rin, rout):
         resample_tool.resample(Context.resample(), cfg.Settings(), tmp_path / "in.wav",
                                tmp_path / name, rout, device=dev)
         if dev == cuda_device:
-            assert rs.polyphase_resample.last_variant == "phase"
+            assert rs.polyphase_resample.last_variant == {48000: "phase", 11025: "class", 24960: "block"}[rin]
     assert rs.polyphase_resample.launches == 1
     assert (tmp_path / "gpu.wav").read_bytes() == (tmp_path / "cpu.wav").read_bytes()
 
@@ -405,6 +444,29 @@ def test_cuda_unpack_kernel_corrupt_buffer(cuda_device, w_lo):
     buf = torch.from_numpy(words.view(np.int32))
     got = pk.unpack_sealed(buf.to(cuda_device), nb, w_lo, n_esc_pad, 11620)
     assert torch.equal(got.cpu(), pk.unpack_sealed_plain(buf, nb, w_lo, n_esc_pad, 11620))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_lo", [4, 9, 16])
+def test_cuda_unpack_kernel_duplicate_indices(cuda_device, w_lo):
+    """Escape indices that name blocks more than once (repeats, -k beside
+    nb - k, one block named by many rows, some of them in other CTAs'
+    ranges): the last row naming a block wins, on the card as in the
+    twin."""
+    from noaa_apt_tpu_torch.ops import pack as pk
+
+    rng = np.random.default_rng(100 + w_lo)
+    nb, n_esc_pad = 1500, 700
+    words = rng.integers(0, 2**32, pk.sealed_len(nb, w_lo, n_esc_pad), dtype=np.uint32)
+    idx = rng.integers(-nb, nb, n_esc_pad).astype(np.int32)
+    idx[:40] = 3
+    idx[40:80:2], idx[41:80:2] = -5, nb - 5
+    idx[-20:] = [nb, -nb - 1, 2**31 - 1, 600, 600, -900, 600, 511, 512, -989] * 2
+    words[nb : nb + n_esc_pad] = idx.view(np.uint32)
+    buf = torch.from_numpy(words.view(np.int32))
+    got = pk.unpack_sealed(buf.to(cuda_device), nb, w_lo, n_esc_pad, 11620)
+    assert torch.equal(got.cpu(), pk.unpack_sealed_plain(buf, nb, w_lo, n_esc_pad, 11620))
+    assert torch.equal(got, pk.unpack_sealed_plain(buf.to(cuda_device), nb, w_lo, n_esc_pad, 11620))
 
 
 @pytest.mark.cuda

@@ -115,6 +115,50 @@ def test_decode_then_render_equals_fused(kind):
     np.testing.assert_array_equal(dec.render_u8_levels(res, lo, hi), want)
 
 
+def _write_wav_bytes(path: Path, signal: np.ndarray, rate: int, fmt: str) -> None:
+    """Mono ``signal`` (floats in [-1, 1]) as a WAV of ``fmt``: "int8"
+    (unsigned, offset 128), "int24", "int32" (PCM) or "float32" (IEEE
+    float), written byte by byte."""
+    import struct
+
+    if fmt == "float32":
+        data, tag, bits = signal.astype("<f4").tobytes(), 3, 32
+    else:
+        bits = {"int8": 8, "int24": 24, "int32": 32}[fmt]
+        v = np.round(signal.astype(np.float64) * (2.0 ** (bits - 1) - 1)).astype(np.int64)
+        if bits == 8:
+            data = (v + 128).astype(np.uint8).tobytes()
+        elif bits == 24:
+            data = v.astype("<i4").view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+        else:
+            data = v.astype("<i4").tobytes()
+        tag = 1
+    fmt_chunk = struct.pack("<HHIIHH", tag, 1, rate, rate * bits // 8, bits // 8, bits)
+    path.write_bytes(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt_chunk) + 8 + len(data)) + b"WAVE"
+                     + b"fmt " + struct.pack("<I", len(fmt_chunk)) + fmt_chunk
+                     + b"data" + struct.pack("<I", len(data)) + data)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int24", "int32", "float32"])
+@pytest.mark.parametrize("rate", [11025, 48000])
+def test_non_16_bit_wav_decodes_like_jax(tmp_path, fmt, rate):
+    """A short seeded pass written as an 8-, 24- or 32-bit integer or a
+    32-bit float WAV reaches the decoder as float32 (the path that runs
+    K1 on float32 input on the card) and decodes as the JAX package
+    decodes the same file: the same sync positions, u8 within +-1 on
+    0.1% of pixels."""
+    signal, _ = synth_recording(n_rows=16, sample_rate=rate, noise_db=14.0, seed=3)
+    path = tmp_path / f"pass_{fmt}.wav"
+    _write_wav_bytes(path, signal / np.abs(signal).max(), rate, fmt)
+    x, r = wav.load_device_ready(path)
+    assert x.dtype == np.float32 and r.hz == rate
+    gray, sync_pos = Decoder(PROFILES["standard"], device="cpu").decode_render_input(x, len(x), r)
+    jx, jr = jwav.load_device_ready(path)
+    jgray, jsync = jdecode.Decoder(JPROFILES["standard"]).decode_render_input(jx, len(jx), jr)
+    assert len(sync_pos) > 0 and sync_pos == jsync
+    _u8_close(gray, jgray, f"{fmt} WAV at {rate} Hz vs JAX")
+
+
 def test_percent_levels_match_host_scan():
     """The device bucket search equals the reference's sequential scan
     (``post/contrast.percent``) on the decoded image, and the device u8

@@ -259,10 +259,14 @@ BLOCK_CASES = [(48000, "standard"), (48000, "fast"), (48000, "slow"), (96000, "s
                (24960, "slow")]
 
 
-def _emulate_block_kernel(x, w, live, g, l, m, k0, out_len):
+def _emulate_block_kernel(x, w, live, g, l, m, k0, out_len, s_f=None, taps=None):
     """``block_kernel`` of ``csrc/resample.cu`` in its own order: a row
     per block ``i``, r-major, only the live groups, ``acc = acc + w*x``
-    one op per step from +0, x read as 0 at or past n."""
+    one op per step from +0, x read as 0 at or past n.  With ``s_f``
+    (float32 x), a CTA of 256 blocks whose staged span
+    ``x[i0*m, (i0+255)*m + R)`` holds an inf or a NaN sums each output's
+    own ``taps`` taps instead, ``W[s_f[c] + t, c]`` in ascending t.
+    Returns (y, count of such CTAs, count of the others)."""
     n, r_len = x.shape[0], w.shape[0]
     i_first, i_end = k0 // l, (k0 + out_len - 1) // l + 1
     xp = torch.cat([x.to(torch.float32), torch.zeros(1)])
@@ -275,8 +279,21 @@ def _emulate_block_kernel(x, w, live, g, l, m, k0, out_len):
             if live[r] >> q & 1:
                 cols = slice(4 * q, 4 * q + 4)
                 acc[:, cols] = acc[:, cols] + wt[r, cols] * xv
+    cta = torch.arange(i_end - i_first) // rs.K1_CTA_BLOCKS
+    n_cta = int(cta[-1]) + 1
+    span = (rs.K1_CTA_BLOCKS - 1) * m + r_len
+    bad = [s_f is not None
+           and not torch.isfinite(x[(i_first + a * rs.K1_CTA_BLOCKS) * m:][:span]).all() for a in range(n_cta)]
+    for a in (a for a in range(n_cta) if bad[a]):
+        rows = torch.nonzero(cta == a)[:, 0]
+        for c in range(l):
+            s = int(s_f[c])
+            exact = torch.zeros(rows.shape[0], dtype=torch.float32)
+            for t in range(taps):
+                exact = exact + wt[s + t, c] * xp[torch.clamp(base[rows] + s + t, max=n)]
+            acc[rows, c] = exact
     flat = acc[:, :l].reshape(-1)
-    return flat[k0 - i_first * l : k0 - i_first * l + out_len]
+    return flat[k0 - i_first * l : k0 - i_first * l + out_len], sum(bad), n_cta - sum(bad)
 
 
 def _full_range_pcm(rate_hz: int, seed: int) -> torch.Tensor:
@@ -299,7 +316,7 @@ def test_block_order_bit_equal_plain(rate_hz, profile_name, cut):
     n = x.shape[0]
     p_f, s_f, m_f = rs.k1_block_fold(t.p_c, t.s_c, t.m)
     l_f = p_f.shape[0]
-    assert l_f == (16 // t.l * t.l if t.l <= 8 else t.l)
+    assert l_f == rs.k1_fold_blocks(t.l, t.m) * t.l and l_f <= 16 if t.l <= 8 else l_f == t.l
     w, live, g = rs.k1_block_table(t.bank, p_f, s_f)
     assert w.shape == (int(s_f.max()) + t.bank.shape[1], 4 * g) and g == (4 if l_f <= 16 else 8)
     k0, out_len = 0, t.work_len(n)
@@ -311,18 +328,74 @@ def test_block_order_bit_equal_plain(rate_hz, profile_name, cut):
         assert int(t.s_c[k % t.l]) + k // t.l * t.m + t.bank.shape[1] > n  # the last window passes n
     args = (torch.from_numpy(t.bank), torch.from_numpy(t.p_c), torch.from_numpy(t.s_c), t.m)
     want = rs.polyphase_resample_plain(x, *args, out_len, k0)
-    got = _emulate_block_kernel(x, w, live, g, l_f, m_f, k0, out_len)
+    got, _, _ = _emulate_block_kernel(x, w, live, g, l_f, m_f, k0, out_len)
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("rate_hz,profile_name", [c for c in BLOCK_CASES if c[0] in (24960, 12480, 41600)])
-def test_block_fold_keeps_every_output(rate_hz, profile_name):
-    """The plain twin over the folded tables (b = 16 // l blocks as one)
-    gives the unfolded tables' outputs, bit for bit, from any k0."""
+# Values a float32 WAV may hold that 0 * x does not cancel (inf, NaN), or
+# that stress the rounding (-0.0, subnormals, near the largest finite).
+SPECIALS = np.array([np.nan, np.inf, -np.inf, -0.0, 1e-45, -3e-42, 3e38, -3e38], np.float32)
+
+
+def _float_pcm_with_specials(n: int, m: int, r_len: int, seed: int) -> torch.Tensor:
+    """Float32 ``x``: ``n`` full-range integers with ``SPECIALS`` in the
+    second CTA of 256 blocks of ``m`` (at its first sample, which the
+    first CTA's span also holds, and inside it); the third CTA holds only
+    the finite specials (-0.0, subnormals), every 997th sample."""
+    x = np.random.default_rng(seed).integers(-32768, 32768, n).astype(np.float32)
+    cta = rs.K1_CTA_BLOCKS * m
+    x[[cta, cta + 1, cta + 2 * m + 3, cta + (r_len - m) // 2 + 5, 2 * cta - m - 7, cta + 4 * m,
+       cta + 17, 2 * cta - 2 * m]] = SPECIALS
+    tail = x[5 * cta // 2 :: 997]
+    tail[:] = np.resize(SPECIALS[3:6], tail.shape[0])
+    return torch.from_numpy(x)
+
+
+def _assert_float_bits_equal(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Bit for bit (``torch.equal`` fails on NaN): the int32 views."""
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rate_hz,profile_name", BLOCK_CASES)
+@pytest.mark.parametrize("cut", ["whole", "k0_short", "tail"])
+def test_block_order_bit_equal_plain_float32(rate_hz, profile_name, cut):
+    """The block-major variant with float32 input holding inf, NaN, -0.0,
+    subnormals and +-3e38: the CTAs whose span holds an inf or a NaN sum
+    each output's own taps, the others run the r loop, and the whole is
+    bit for bit the plain twin, at the same cuts as the int16 test."""
     t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
-    p_f, s_f, m_f = rs.k1_block_fold(t.p_c, t.s_c, t.m)
+    p_f, s_f, m_f = rs.k1_block_fold(t.p_c, t.s_c, t.m, x_bytes=4)
+    l_f = p_f.shape[0]
+    w, live, g = rs.k1_block_table(t.bank, p_f, s_f)
+    r_len = w.shape[0]
+    n = int(2.6 * rs.K1_CTA_BLOCKS * m_f) + r_len
+    x = _float_pcm_with_specials(n, m_f, r_len, seed=rate_hz + t.l)
+    k0, out_len = 0, t.work_len(n)
+    if cut == "k0_short":
+        k0, out_len = 7, out_len - t.l - 7
+    elif cut == "tail":
+        out_len = rs.out_len_for(n, t.l, t.m, t.offset)
+    args = (torch.from_numpy(t.bank), torch.from_numpy(t.p_c), torch.from_numpy(t.s_c), t.m)
+    want = rs.polyphase_resample_plain(x, *args, out_len, k0)
+    got, n_exact, n_loop = _emulate_block_kernel(x, w, live, g, l_f, m_f, k0, out_len, s_f, t.bank.shape[1])
+    assert n_exact >= 1 and n_loop >= 1 and bool(torch.isnan(want).any())
+    _assert_float_bits_equal(got, want)
+    # The r loop in every CTA would not be the twin: 0 * inf is NaN.
+    loop_only, _, _ = _emulate_block_kernel(x, w, live, g, l_f, m_f, k0, out_len)
+    assert not torch.equal(loop_only.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rate_hz,profile_name", [c for c in BLOCK_CASES if c[0] in (24960, 12480, 41600)])
+@pytest.mark.parametrize("x_bytes", [2, 4])
+def test_block_fold_keeps_every_output(rate_hz, profile_name, x_bytes):
+    """The plain twin over the folded tables (b <= 16 // l blocks as
+    one, for int16 and float32 samples) gives the unfolded tables'
+    outputs, bit for bit, from any k0."""
+    t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
+    p_f, s_f, m_f = rs.k1_block_fold(t.p_c, t.s_c, t.m, x_bytes)
     b = p_f.shape[0] // t.l
-    assert m_f == b * t.m and b == 16 // t.l
+    assert m_f == b * t.m and b == rs.k1_fold_blocks(t.l, t.m, x_bytes) and 1 <= b <= 16 // t.l
     np.testing.assert_array_equal(s_f[t.l : 2 * t.l], t.s_c + t.m)
     x = _full_range_pcm(rate_hz, seed=3)
     bank = torch.from_numpy(t.bank)
@@ -393,6 +466,29 @@ def test_class_order_bit_equal_plain(rate_hz, profile_name, cut):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("rate_hz,profile_name", CLASS_CASES)
+@pytest.mark.parametrize("cut", ["whole", "k0_short", "tail"])
+def test_class_order_bit_equal_plain_float32(rate_hz, profile_name, cut):
+    """The class-major variant with float32 input holding inf, NaN, -0.0,
+    subnormals and +-3e38: it multiplies exactly the twin's products
+    (trailing zero taps included) in the twin's order, so it is bit for
+    bit the plain twin with no path of its own for them."""
+    t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
+    x = _full_range_pcm(rate_hz, seed=rate_hz + t.l).to(torch.float32)
+    n = x.shape[0]
+    x[[100, 101, (2 * t.m + 1) % (n - 9), n // 3, n // 3 + 7, n // 2, n // 2 + 1, n - 9]] = torch.from_numpy(SPECIALS)
+    wc, seg = rs.k1_class_table(t.bank, t.p_c, t.s_c)
+    k0, out_len = 0, t.work_len(n)
+    if cut == "k0_short":
+        k0, out_len = 7, out_len - t.l - 7
+    elif cut == "tail":
+        out_len = rs.out_len_for(n, t.l, t.m, t.offset)
+    args = (torch.from_numpy(t.bank), torch.from_numpy(t.p_c), torch.from_numpy(t.s_c), t.m)
+    want = rs.polyphase_resample_plain(x, *args, out_len, k0)
+    assert bool(torch.isnan(want).any())
+    _assert_float_bits_equal(_emulate_class_kernel(x, wc, t.s_c, seg, t.l, t.m, k0, out_len), want)
+
+
 @pytest.mark.parametrize("rate_hz,profile_name", [(11025, "slow"), (44100, "standard"), (8000, "fast")])
 def test_class_table_layout(rate_hz, profile_name):
     """wc holds class c's taps in column c; seg is the widest tile's
@@ -446,26 +542,86 @@ def test_block_table_layout():
 OPTIN = 232_448  # an H100's opt-in shared memory per block
 
 
-@pytest.mark.parametrize("rate_hz", [8000, 11025, 22050, 24000, 32000, 44100, 48000, 96000, 192000,
-                                     12480, 24960, 41600])
+# (profile, rate) where K1 runs "phase" for float32 input on an H100 (every
+# other shape of test_k1_variant_by_shape runs "block" or "class" for both
+# dtypes): 192 kHz standard, whose float32 span passes the opt-in; the
+# block-major CTAs that leave at most two an SM with T <= 2m; l > 32 with
+# m > 4l and the bank in shared memory.  250 kHz standard and fast run
+# "phase" for int16 too: no class-major CTA fits (seg 2929 and 2037).
+F32_PHASE = {("standard", 192000), ("standard", 96000), ("fast", 48000), ("fast", 96000), ("fast", 192000),
+             ("standard", 88200), ("fast", 88200), ("slow", 88200), ("slow", 250000)}
+BOTH_PHASE = {("standard", 250000), ("fast", 250000)}
+
+
+def _k1_smem(t, x_bytes: int) -> int:
+    """The shared memory of the variant K1 tries first for ``t``'s shape."""
+    if t.l > rs.K1_BLOCK_MAX_L:
+        return rs.k1_class_smem(rs.k1_class_table(t.bank, t.p_c, t.s_c)[1])
+    p_f, s_f, m_f = rs.k1_block_fold(t.p_c, t.s_c, t.m, x_bytes)
+    w, _, g = rs.k1_block_table(t.bank, p_f, s_f)
+    return rs.k1_block_smem(p_f.shape[0], m_f, w.shape[0], g, x_bytes)
+
+
+@pytest.mark.parametrize("rate_hz", [8000, 11025, 22050, 24000, 32000, 44100, 48000, 62500, 88200, 96000,
+                                     192000, 250000, 12480, 24960, 41600])
 @pytest.mark.parametrize("profile_name", ["standard", "fast", "slow"])
 def test_k1_variant_by_shape(profile_name, rate_hz):
-    """With int16 input, "block" for every l <= 32 shape and "class" for
-    every l > 32 shape (the gather regime at 11025, 22050 and 44100 Hz;
-    l = 39 or 52 at 8000 Hz), each within the opt-in shared memory;
-    "phase" for float32 input and for a budget below the variant's CTA."""
+    """Int16 input runs "block" for every l <= 32 shape (folded for its
+    sample size) and "class" for every l > 32 shape (the gather regime at
+    11025, 22050 and 44100 Hz; l = 39 or 52 at 8000 Hz; 62500 and 88200
+    Hz), each within the opt-in shared memory, but at 250 kHz standard and
+    fast, where no class-major CTA fits.  Float32 input runs the same,
+    but "phase" at the shapes of ``F32_PHASE``; "phase" for a budget below
+    the variant's CTA."""
     t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
-    if t.l <= 32:
-        p_f, s_f, m_f = rs.k1_block_fold(t.p_c, t.s_c, t.m)
-        w, _, g = rs.k1_block_table(t.bank, p_f, s_f)
-        smem, want = rs.k1_block_smem(p_f.shape[0], m_f, w.shape[0], g), "block"
-    else:
-        assert t.l in (39, 52) or rate_hz in (11025, 22050, 44100)
-        smem, want = rs.k1_class_smem(rs.k1_class_table(t.bank, t.p_c, t.s_c)[1]), "class"
-    assert smem <= OPTIN
-    assert rs._k1_variant(t.l, torch.int16, smem, OPTIN) == want
-    assert rs._k1_variant(t.l, torch.float32, smem, OPTIN) == "phase"
-    assert rs._k1_variant(t.l, torch.int16, smem, smem - 1) == "phase"
+    taps, shape = t.bank.shape[1], (profile_name, rate_hz)
+    fast = "block" if t.l <= rs.K1_BLOCK_MAX_L else "class"
+    for x_bytes, want in ((2, fast), (4, "phase" if shape in F32_PHASE else fast)):
+        smem = _k1_smem(t, x_bytes)
+        if shape in BOTH_PHASE or (x_bytes, shape) == (4, ("standard", 192000)):
+            assert smem > OPTIN
+            want = "phase"
+        else:
+            assert smem <= OPTIN
+            assert rs._k1_variant(t.l, t.m, taps, x_bytes, smem, smem - 1) == "phase"
+        assert rs._k1_variant(t.l, t.m, taps, x_bytes, smem, OPTIN) == want, x_bytes
+    assert _k1_smem(DecodeTables.design(PROFILES["standard"], Rate(192000)), 4) == 237_136
+
+
+@pytest.mark.parametrize("l,m,taps,want16,want32", [
+    (147, 640, 45, "class", "phase"),  # the tool's 48000 -> 11025 Hz
+    (640, 147, 45, "class", "class"),  # 11025 -> 48000 Hz
+    (208, 735, 68, "class", "class"),  # 44100 Hz standard, m <= 4l
+    (624, 3125, 96, "class", "class"),  # 62500 Hz standard: the bank in global memory
+    (11111, 48000, 45, "class", "class"),  # -r 11111 on 48 kHz: the bank in global memory
+    (33, 132, 40, "class", "class"), (33, 133, 40, "class", "phase"),
+    (13, 400, 50, "block", "block")])
+def test_k1_variant_phase_where_m_over_4l(l, m, taps, want16, want32):
+    """``l > 32`` with ``m > 4 l`` runs "phase" for float32 input where
+    its bank fits in shared memory (where "class" was slower at the
+    resample tool's 48000 -> 11025 Hz); int16 input, m <= 4 l and a bank
+    in global memory run "class"; the rule leaves "block" (l <= 32)
+    alone."""
+    assert rs._k1_variant(l, m, taps, 2, 4096, OPTIN) == want16
+    assert rs._k1_variant(l, m, taps, 4, 4096, OPTIN) == want32
+    assert rs.k1_phase_smem(624, 96) == 244_608 > OPTIN
+
+
+@pytest.mark.parametrize("x_bytes", [2, 4])
+def test_k1_fold_spreads_banks(x_bytes):
+    """The fold at l == 1 picks b = 15 blocks at m == 2 (24960 Hz
+    standard, 41600 Hz slow, the ``-r 12480`` tool): a stride of 30
+    samples leaves a warp's reads conflict-free with int16 and 2-way with
+    float32, where b = 16 puts them on 2 banks (int16) or 1 (float32).
+    No fold of a decoder rate conflicts more than 2 ways."""
+    assert rs.k1_fold_blocks(1, 2, x_bytes) == 15
+    assert rs.k1_bank_ways(30, x_bytes) == x_bytes // 2
+    assert rs.k1_bank_ways(32, x_bytes) == 8 * x_bytes
+    for rate_hz, profile_name in [(24960, "standard"), (12480, "standard"), (41600, "slow"),
+                                  (24960, "fast"), (41600, "standard"), (12480, "slow")]:
+        t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
+        b = rs.k1_fold_blocks(t.l, t.m, x_bytes)
+        assert 1 <= b <= 16 // t.l and rs.k1_bank_ways(b * t.m, x_bytes) <= 2
 
 
 def test_k1_block_smem_at_48k():
@@ -476,14 +632,17 @@ def test_k1_block_smem_at_48k():
         t = DecodeTables.design(PROFILES[profile_name], Rate(rate_hz))
         w, _, g = rs.k1_block_table(t.bank, t.p_c, t.s_c)
         got[profile_name, rate_hz] = rs.k1_block_smem(t.l, t.m, w.shape[0], g)
+        got[profile_name, rate_hz, "f32"] = rs.k1_block_smem(t.l, t.m, w.shape[0], g, x_bytes=4)
     assert got == {("standard", 48000): 33_625, ("fast", 48000): 51_106,
-                   ("slow", 48000): 31_603, ("slow", 192000): 126_072}
+                   ("slow", 48000): 31_603, ("slow", 192000): 126_072,
+                   ("standard", 48000, "f32"): 59_369, ("fast", 48000, "f32"): 89_554,
+                   ("slow", 48000, "f32"): 47_379, ("slow", 192000, "f32"): 189_208}
 
 
 def _table_cache_follows_bank(variant: str, rate_hz: int, first_tap) -> None:
     t = DecodeTables.design(PROFILES["standard"], Rate(rate_hz))
     bank, p_c, s_c = (torch.from_numpy(a.copy()) for a in (t.bank, t.p_c, t.s_c))
-    extra = (t.m,) if variant == "block" else ()  # the fold's stride
+    extra = (t.m, 2) if variant == "block" else ()  # the fold's stride and sample bytes
     first = rs._table(variant, bank, p_c, s_c, *extra)
     assert rs._table(variant, bank, p_c, s_c, *extra) is first
     bank[0, 0] += 1.0

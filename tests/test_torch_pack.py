@@ -6,8 +6,9 @@ layout and the host decoder equal the JAX package's bit for bit;
 ``unpack_sealed`` on a CPU tensor (the twin) equals
 ``jax.jit(unpack_sealed_device)``, escape padding included, and so does
 a corrupt buffer whose escape indices are negative or out of range (the
-JAX graph reads them as int32 and wraps ``[-nb, 0)``); the port's C++
-encoder equals its numpy encoder.
+JAX graph reads them as int32 and wraps ``[-nb, 0)``), and so does one
+whose indices name a block more than once (the last row wins); the
+port's C++ encoder equals its numpy encoder.
 """
 
 import jax
@@ -84,6 +85,37 @@ def test_corrupt_buffer_matches_jax(w_lo):
     np.testing.assert_array_equal(got, _jax_unpack(buf, nb, w_lo, n_esc_pad, 11620))
     rows = buf[nb + n_esc_pad : nb + n_esc_pad * 65].view(np.int16).reshape(n_esc_pad, 128)
     np.testing.assert_array_equal(got.reshape(nb, 128)[[nb - 1, 3, 0]], rows[[0, 1, 2]])
+
+
+DUPLICATE_INDICES = {
+    # repeated positive indices, a negative -k beside nb - k, out of
+    # range both ways, and padding slots (nb) at the end
+    "repeats_and_aliases": [1, 2, 1, -3, 5, 3, -9, 9, 30, -40, 2**31 - 1, 2, 9, 9],
+    # one block named by every row: the last row wins
+    "all_one_block": [4, -5, 4, 4, -5, 4, 4, -5, 9, 9, 9, 9, 9, 9],
+}
+
+
+@pytest.mark.parametrize("case", sorted(DUPLICATE_INDICES))
+@pytest.mark.parametrize("w_lo", [4, 9, 16])
+def test_duplicate_escape_indices_match_jax(case, w_lo):
+    """Escape indices that name one block more than once (directly, or a
+    negative ``-k`` beside ``nb - k``): the twin keeps the last such row,
+    as JAX's scatter on the CPU does, and equals the JAX graph."""
+    rng = np.random.default_rng(w_lo + len(case))
+    nb = 9
+    idx = np.array(DUPLICATE_INDICES[case], np.int64).astype(np.int32)
+    n_esc_pad = idx.shape[0]
+    buf = rng.integers(0, 2**32, pk.sealed_len(nb, w_lo, n_esc_pad), dtype=np.uint32)
+    buf[nb : nb + n_esc_pad] = idx.view(np.uint32)
+    got = _port_unpack(buf, nb, w_lo, n_esc_pad, 11620)
+    np.testing.assert_array_equal(got, _jax_unpack(buf, nb, w_lo, n_esc_pad, 11620))
+    rows = buf[nb + n_esc_pad : nb + n_esc_pad * 65].view(np.int16).reshape(n_esc_pad, 128)
+    norm = np.where(idx < 0, idx.astype(np.int64) + nb, idx)
+    for b in range(nb):
+        named = np.nonzero(norm == b)[0]
+        if named.size:
+            np.testing.assert_array_equal(got.reshape(nb, 128)[b], rows[named[-1]])
 
 
 def test_unpack_checks_its_arguments():
