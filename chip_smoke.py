@@ -94,7 +94,18 @@ Phases, one JSON line each (``{"phase": ...}``):
    payloads, the same over host16c payloads, and
    ``decode_render_input_batch``: one K3 launch per batch, every live
    member byte-equal to its unbatched render, the short one an error
-   entry; ms per pass beside the unbatched renders'.
+   entry; ms per pass beside the unbatched renders';
+12. ``fleet`` — fleet serving: two copies each of the 48 kHz, 11025 Hz and
+   24960 Hz passes and a header-only WAV in one directory, through the
+   CLI's directory mode (``--ingest device``) and through
+   ``serve.decode_fleet(ingest="host16c", fleet_batch=4)``, the launch
+   counters set to 0 just before each run and read just after: exactly the
+   header-only WAV fails (the CLI exits 1), each grey PNG equals the R
+   channel of the single-file run of the same WAV and ingest, and the
+   launches match the passes (device: K1, K2, K3 once a pass; host16c: K4
+   and K2 once a packed pass, K3 once a group, the 24960 Hz copies on
+   K1, K2, K3 alone).  One line per run: wall, realtime factor,
+   ``stage_totals``, ``link`` and the launches.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -1115,6 +1126,92 @@ def batch_path_phase(torch, wav48: Path) -> dict:
     return k3
 
 
+FLEET_RATES = (48000, 11025, 24960)
+
+
+def fleet_phase(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr: int) -> dict:
+    """Fleet serving on six copies of the three passes and a header-only WAV:
+    the CLI's directory mode with device ingest, then ``decode_fleet`` with
+    host16c; returns each run's launches and the host16c run's batches."""
+    import shutil
+
+    import numpy as np
+
+    from noaa_apt_tpu_torch import cli, ops
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph.decode import Decoder
+    from noaa_apt_tpu_torch.io import png
+    from noaa_apt_tpu_torch.serve import decode_fleet
+
+    # The single-file PNGs of the same WAVs: main_path_runs' and ingest_path_phase's,
+    # and host16c at 24960 Hz (l == 1: the device path, K4 not launched).
+    main_path_phase(torch, wav25, tmp / "ingest_host16c_24960.png", 24960, spr, None,
+                    ("-q", "--ingest", "host16c"), label="ingest host16c", phase="ingest_path")
+    singles = {"device": {r: tmp / f"98_percent_{r}.png" for r in FLEET_RATES},
+               "host16c": {48000: tmp / "ingest_host16c.png", 11025: tmp / "ingest_host16c_11025.png",
+                           24960: tmp / "ingest_host16c_24960.png"}}
+    d = tmp / "fleet_in"
+    d.mkdir()
+    rates = {}
+    for src, rate in zip((wav48, wav11, wav25), FLEET_RATES):
+        for k in (1, 2):
+            shutil.copyfile(src, d / f"pass_{rate}_{k}.wav")
+            rates[f"pass_{rate}_{k}.wav"] = rate
+    with open(wav48, "rb") as f:
+        (d / "truncated.wav").write_bytes(f.read(44))  # a header that promises 57.6 MB
+    n = len(rates)
+
+    def check(label: str, rep, wall: float, launches: dict, expect: dict, mode: str, **extra):
+        if [r.input_path.name for r in rep.failed] != ["truncated.wav"] or len(rep.ok) != n:
+            raise AssertionError(f"fleet {label}: failed "
+                                 f"{[(r.input_path.name, r.error) for r in rep.failed]}, {len(rep.ok)} ok")
+        if launches != expect:
+            raise AssertionError(f"fleet {label}: launches {launches}, expected {expect}")
+        for r in rep.ok:
+            got = png.read_png(r.output_path)
+            want = png.read_png(singles[mode][rates[r.input_path.name]])[..., 0]
+            if got.shape[2] != 1 or not np.array_equal(got[..., 0], want):
+                raise AssertionError(f"fleet {label}: {r.output_path.name} differs from its single-file PNG")
+        emit("fleet", run=label, passes=n, ok=len(rep.ok), failed=[r.input_path.name for r in rep.failed],
+             rows=sum(r.n_rows for r in rep.ok), wall_s=rep.wall_seconds, call_wall_s=wall,
+             realtime_factor=rep.realtime_factor, stage_totals=rep.stage_totals(), link=rep.link,
+             compile_variants=rep.compile_variants, launches=launches, pngs_equal_single_file=True, **extra)
+
+    report: dict = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main([str(d), "-o", str(tmp / "fleet_cli"), "-q", "--ingest", "device"], report=report)
+    torch.cuda.synchronize()
+    device_launches = ops.launch_counts()
+    if rc != 1:
+        raise AssertionError(f"the fleet CLI returned {rc}, not 1 (one pass fails)")
+    check("cli --ingest device", report["fleet"], time.perf_counter() - t0, device_launches,
+          {"polyphase_resample": n, "demod_fir_corr": n, "select_peaks": n, "unpack_sealed": 0}, "device")
+
+    batches = []
+    real = Decoder.decode_render_batch
+
+    def counted(self, payloads, *a, **kw):
+        batches.append(len(payloads))
+        return real(self, payloads, *a, **kw)
+
+    Decoder.decode_render_batch = counted
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = decode_fleet(sorted(d.glob("*.wav")), tmp / "fleet_host16c", profile=STANDARD,
+                           ingest="host16c", fleet_batch=4)
+        torch.cuda.synchronize()
+        host16c_launches = ops.launch_counts()
+    finally:
+        Decoder.decode_render_batch = real
+    n_l1 = sum(r == 24960 for r in rates.values())  # l == 1: no payload, the device path
+    check("decode_fleet host16c", rep, time.perf_counter() - t0, host16c_launches,
+          {"polyphase_resample": n_l1, "demod_fir_corr": n, "select_peaks": n_l1 + len(batches),
+           "unpack_sealed": n - n_l1}, "host16c", batches=batches)
+    return {"device": device_launches, "host16c": host16c_launches, "batches": len(batches)}
+
+
 def main() -> int:
     import torch
 
@@ -1184,6 +1281,7 @@ def main() -> int:
         rec["unpack_sealed"] = unpack_phase(torch, dev, wav48)
         ingest_launches = ingest_path_phase(torch, tmp, wav48, wav11, spr)
         batch_k3 = batch_path_phase(torch, wav48)
+        fleet = fleet_phase(torch, tmp, wav48, wav11, wav25, spr)
 
     sources = {
         "polyphase_resample": ("noaa_apt_tpu_torch/csrc/resample.cu", "noaa_apt_tpu/ops/resample.py:186"),
@@ -1199,7 +1297,8 @@ def main() -> int:
         entry = {"name": name, "ok": True, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": path_launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                 "library_ms": r["library_ms"]}
+                 "library_ms": r["library_ms"],
+                 "fleet_launches": {"cli_device": fleet["device"][name], "host16c": fleet["host16c"][name]}}
         if name == "polyphase_resample":
             entry["variant"] = r["variant"]
             entry["float32"] = {key: r["float32"][key] for key in (
@@ -1213,6 +1312,7 @@ def main() -> int:
             entry.update({key: r[key] for key in ("summary_ms", "walk_ms", "jumps", "walk_steps",
                                                   "ns_per_jump")})
             entry["batch_launches"] = batch_k3  # pallas_select.py:237's path: one per batch
+            entry["fleet_batches"] = fleet["batches"]  # of the host16c fleet's K3 launches
         if name == "unpack_sealed":
             entry.update({key: r[key] for key in ("device_ms", "w_lo", "n_esc_pad", "sealed_bytes")})
         kernels.append(entry)

@@ -1,4 +1,5 @@
-"""Command line of the port: WAV (or a raw ``.npy``) -> PNG, and WAV -> WAV.
+"""Command line of the port: WAV (or a raw ``.npy``) -> PNG, a directory of
+WAVs -> PNGs (fleet mode), and WAV -> WAV.
 
 Behavioral contract: the single-file decode branch and the resample
 branch of ``noaa_apt_tpu/cli.py:129-565`` for the ported options: every
@@ -11,23 +12,29 @@ or the host modes ``host``, ``host16``, ``host16c``, ``host8``:
 ``noaa_apt_tpu/cli.py:497-511``) and ``-r RATE`` (the WAV -> WAV
 resample tool).  The decode and the resample run on the card unless
 ``--device cpu`` is given; without CUDA and without that flag they
-raise.  With sync on and no ``--raw-out`` the decode takes the fused path
+raise.  A directory input decodes every WAV in it through
+:func:`serve.decode_fleet` (``noaa_apt_tpu/cli.py:327-435``): one PNG per
+good WAV and ``fleet_report.json`` in ``-o`` (``./fleet_out``), exit 1 if
+a pass failed; ``--fleet-png rgba`` keeps the single-file RGBA format.
+With sync on and no ``--raw-out`` the decode takes the fused path
 (:meth:`Decoder.decode_render_input`, or with a host ingest
 :meth:`Decoder.prepare_work` -> :meth:`Decoder.decode_render`, then
 :func:`finish_image`), else :meth:`Decoder.decode` -> :func:`process`.
 A bad ``-m``, ``-s``, ``-t`` or ``-T`` prints the JAX CLI's message and
 returns 0, as that CLI does.  The other modes (``--wav-steps``,
-``--export-resample-filtered``, a directory, ``--stream``,
-``--distributed``, no input: the GUI) exit 1 with "not ported yet" and
-write no file.
+``--export-resample-filtered``, ``--stream``, ``--distributed``,
+``--multihost`` in fleet mode, no input: the GUI) exit 1 with "not ported
+yet" and write no file.
 
     python -m noaa_apt_tpu_torch in.wav -o out.png [-c telemetry] [-F] [-m yes -R auto] [--ingest host16c] [--device cpu]
+    python -m noaa_apt_tpu_torch passes/ -o out_dir/ [--ingest host16c] [--fleet-png rgba] [--device cpu]
     python -m noaa_apt_tpu_torch in.wav -r 11025 -o out.wav [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import time
 from datetime import datetime
@@ -46,6 +53,7 @@ from .graph.process import finish_image, process
 from .io import config as cfg
 from .io import misc, png, wav
 from .io.context import Context
+from .serve import decode_fleet
 from .types import (SAT_IDS, ColorSettings, Contrast, ContrastKind, MapSettings, OrbitSettings,
                     RefTime, Rotate)
 
@@ -70,10 +78,12 @@ def build_parser() -> argparse.ArgumentParser:
         description="Decode NOAA APT images from WAV files (PyTorch/CUDA engine).",
     )
     p.add_argument("input_filename", nargs="?", help=(
-        "Input WAV file, or a .npy written by --raw-out to re-process."))
+        "Input WAV file, a directory of WAV files (fleet mode), or a .npy written by "
+        "--raw-out to re-process."))
     p.add_argument("-o", "--output", metavar="FILENAME", help=(
         "Output path. When decoding images the default is './output.png', when resampling "
-        "the default is './output.wav'."))
+        "the default is './output.wav'. When the input is a directory (fleet mode) this is "
+        "the output directory, './fleet_out' by default."))
     p.add_argument("-v", "--version", action="store_true", help="Show version and quit.")
     p.add_argument("-d", "--debug", action="store_true", help="Print debugging messages.")
     p.add_argument("-q", "--quiet", action="store_true", help="Don't print info messages.")
@@ -118,6 +128,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--raw-out", metavar="FILE.npy", help=(
         "Also save the raw decoded signal (one float per pixel at 4160 Hz) as .npy; feed it "
         "back as the input to re-process without decoding."))
+    p.add_argument("--multihost", action="store_true",
+                   help="Fleet (directory) mode across hosts (not ported yet).")
+    p.add_argument("--fleet-png", choices=["auto", "rgba"], default="auto", help=(
+        "Fleet (directory) mode output format: 'auto' (default) writes single-channel "
+        "grayscale PNGs when the image carries no colour information (the same pixels); "
+        "'rgba' keeps 4-channel files byte-equal to single-file mode."))
     p.add_argument("--stream", action="store_true", help="Live decode (not ported yet).")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help=(
         "Where to decode or resample: the card (default) or the plain PyTorch path on the CPU."))
@@ -125,15 +141,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> str | None:
-    """The first option of ``args`` that the port does not have yet."""
+    """The first option of ``args`` that the port does not have yet.
+    Fleet mode refuses ``--wav-steps`` and ``--distributed`` itself, as
+    the JAX CLI does (:func:`_fleet`)."""
     if args.input_filename is None:
         return "the GUI (no input file)"
+    single = not Path(args.input_filename).is_dir()
     for flag, name in (
-        (args.wav_steps, "--wav-steps"),
+        (single and args.wav_steps, "--wav-steps"),
         (args.export_resample_filtered, "--export-resample-filtered"),
         (args.stream, "--stream"),
-        (args.distributed, "--distributed"),
-        (Path(args.input_filename).is_dir(), "a directory input"),
+        (single and args.distributed, "--distributed"),
     ):
         if flag:
             return name
@@ -198,9 +216,103 @@ def _orbit_settings(args, settings, rotate: Rotate) -> tuple[OrbitSettings | Non
                          draw_map=draw_map), None
 
 
+def _color_settings(args, settings) -> ColorSettings | None:
+    """``-F``'s palette (``-P``, else the settings file's default, written
+    on first use), or None without ``-F``."""
+    if not args.false_color:
+        return None
+    pf = Path(args.palette) if args.palette else Path(settings.default_palette_filename)
+    if args.palette is None and not pf.exists():
+        from .post.palette import ensure_default_palette
+
+        pf = ensure_default_palette(pf)
+    return ColorSettings(palette_filename=pf)
+
+
+def _fleet(args, settings, contrast: Contrast, rotate: Rotate, orbit: OrbitSettings | None,
+           device, report: dict | None) -> int:
+    """Fleet mode (``noaa_apt_tpu/cli.py:327-435``): every WAV of the
+    input directory through :func:`decode_fleet`, each with its own time
+    and satellite where the map or ``-R auto`` needs them (``-s`` and
+    ``-t`` override), then ``fleet_report.json`` beside the PNGs.  Returns
+    1 if a pass failed."""
+    for flag, name in ((args.wav_steps, "--wav-steps"), (args.distributed, "--distributed"),
+                       (args.raw_out, "--raw-out")):
+        if flag:
+            print(f"{name} is not supported in fleet (directory) mode")
+            return 1
+    wavs = sorted(p for p in Path(args.input_filename).iterdir() if p.suffix.lower() == ".wav")
+    if not wavs:
+        print(f"No WAV files found in {args.input_filename}")
+        return 1
+    if args.multihost:
+        log.error("--multihost is not ported yet")
+        return 1
+
+    orbit_for = None
+    if orbit is not None and (orbit.draw_map is not None or rotate == Rotate.ORBIT):
+        def orbit_for(p):
+            s_name, r_time = None, None
+            try:
+                r_time, s_name = misc.infer_time_sat(settings, p)
+            except err.AptError as e:
+                log.warning("No time/satellite for %s: %s", p, e)
+            if args.sat is not None:
+                s_name = orbit.sat_name
+            if args.start_time is not None:
+                r_time = orbit.ref_time
+            if s_name is None or r_time is None:
+                return None
+            return OrbitSettings(sat_name=s_name, ref_time=r_time, custom_tle=orbit.custom_tle,
+                                 draw_map=orbit.draw_map)
+
+    out_dir = Path(args.output or "./fleet_out")
+    try:
+        color = _color_settings(args, settings)
+    except err.AptError as e:
+        log.error("%s", e)
+        return 1
+    rep = decode_fleet(wavs, out_dir, profile=settings.profile(), contrast=contrast, rotate=rotate,
+                       color=color, orbit_for=orbit_for, sync=args.sync, ingest=args.ingest,
+                       gray_png="auto" if args.fleet_png == "auto" else "never", device=device)
+    print(f"fleet: {len(rep.ok)} decoded, {len(rep.failed)} failed, "
+          f"{rep.wall_seconds:.1f}s wall ({rep.realtime_factor:.0f}x realtime)")
+    report_path = out_dir / "fleet_report.json"
+    try:
+        report_path.write_text(json.dumps({
+            "ok": len(rep.ok),
+            "failed": [{"input": str(r.input_path), "error": r.error} for r in rep.failed],
+            "wall_seconds": round(rep.wall_seconds, 3),
+            "realtime_factor": round(rep.realtime_factor, 1),
+            "rows": sum(r.n_rows for r in rep.ok),
+            "stage_seconds": rep.stage_totals(),
+            "compile_variants": rep.compile_variants,
+            "passes": [
+                {
+                    "input": str(r.input_path),
+                    "output": str(r.output_path),
+                    "rows": r.n_rows,
+                    "load_s": round(r.load_s, 3),
+                    "ingest_s": round(r.ingest_s, 3),
+                    "device_s": round(r.device_s, 3),
+                    "fetch_s": round(r.fetch_s, 3),
+                    "encode_s": round(r.encode_s, 3),
+                }
+                for r in rep.ok
+            ],
+        }, indent=1))
+    except OSError as e:
+        log.warning("could not write %s: %s", report_path, e)
+    if report is not None:
+        report["fleet"] = rep
+    return 0 if not rep.failed else 1
+
+
 def main(argv=None, report: dict | None = None) -> int:
-    """Decode one WAV (or re-process one ``.npy``) to a PNG, or resample
-    one WAV (``-r``); returns the exit code.  ``report``, if given,
+    """Decode one WAV (or re-process one ``.npy``) to a PNG, decode a
+    directory of WAVs (fleet mode), or resample one WAV (``-r``); returns
+    the exit code.  In fleet mode ``report``, if given, receives the
+    :class:`serve.FleetReport` under ``"fleet"``.  Otherwise ``report``, if given,
     receives the wall seconds of each step (of the whole run for ``-r``),
     the decoder's per-stage milliseconds and its ``telemetry`` stage (None
     where the fused telemetry path did not run), the host ingest's seconds
@@ -244,21 +356,15 @@ def main(argv=None, report: dict | None = None) -> int:
         return 0
     if not args.sync and contrast.kind in (ContrastKind.TELEMETRY, ContrastKind.HISTOGRAM):
         log.warning("Adjusting contrast without syncing, expect horrible results!")
+    if Path(args.input_filename).is_dir():
+        return _fleet(args, settings, contrast, rotate, orbit, device, report)
     context = Context.decode(lambda p_, d_: log.info("%s", d_), Rate(settings.work_rate),
                              Rate(FINAL_RATE))
 
     t = [time.perf_counter()]
     decoder, sync_pos = None, None
     try:
-        color = None
-        if args.false_color:
-            pf = Path(args.palette) if args.palette else Path(settings.default_palette_filename)
-            if args.palette is None and not pf.exists():
-                from .post.palette import ensure_default_palette
-
-                pf = ensure_default_palette(pf)
-            color = ColorSettings(palette_filename=pf)
-
+        color = _color_settings(args, settings)
         if str(args.input_filename).endswith(".npy"):
             # Re-process a previously decoded raw signal (see --raw-out).
             raw = np.load(args.input_filename).astype(np.float32)

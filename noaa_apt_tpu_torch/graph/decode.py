@@ -665,9 +665,13 @@ class Decoder:
             context.status(0.1, f"Resampling to {self.work_rate.get_hz()} (host)")
         return fast_resample_native(np.asarray(signal, np.float32), l, m, coeff, out_len, exact=exact)
 
-    def _host_to_device(self, arr: np.ndarray) -> torch.Tensor:
+    def _host_to_device(self, arr: np.ndarray, upload=None) -> torch.Tensor:
         """``arr`` on the decoder's device; records the copy's bytes and
-        host-clock milliseconds in ``last_upload``."""
+        host-clock milliseconds in ``last_upload``.  A caller's ``upload``
+        (:meth:`prepare_work`) makes the copy instead and keeps its own
+        accounting."""
+        if upload is not None:
+            return upload(arr)
         t0 = time.perf_counter()
         if not arr.flags.writeable or not arr.flags.c_contiguous:
             arr = np.array(arr)  # read-only memmap -> a copy torch may wrap
@@ -675,7 +679,8 @@ class Decoder:
         self.last_upload = {"bytes": int(arr.nbytes), "host_ms": (time.perf_counter() - t0) * 1e3}
         return out
 
-    def prepare_work(self, signal, input_rate: Rate, to_device: bool = False, context=None):
+    def prepare_work(self, signal, input_rate: Rate, to_device: bool = False, context=None,
+                     upload=None):
         """Host-ingest a recording into a work payload
         (``noaa_apt_tpu/graph/decode.py:577-695``): the host C++ polyphase
         resample, quantized to i16 (``host16``, ``host16c``) or i8
@@ -686,14 +691,17 @@ class Decoder:
         path handles it).  ``host8`` ships an i16 payload instead for a
         recording whose predicted i8 SNR is under ``host8_min_snr_db``
         (counted in ``host8_fallbacks``).  ``last_ingest_s`` gets the
-        seconds spent."""
+        seconds spent.  ``upload``: with ``to_device``, a callable that
+        puts the padded host buffer on the device in place of the
+        decoder's own copy (the fleet's pinned side-stream copy,
+        ``serve.py``); ``last_upload`` is then left as it was."""
         t0 = time.perf_counter()
         try:
-            return self._prepare_work(signal, input_rate, to_device, context)
+            return self._prepare_work(signal, input_rate, to_device, context, upload)
         finally:
             self.last_ingest_s = time.perf_counter() - t0
 
-    def _prepare_work(self, signal, input_rate: Rate, to_device: bool, context):
+    def _prepare_work(self, signal, input_rate: Rate, to_device: bool, context, upload):
         from ..native import ingest_i16_native
 
         quantize = self.ingest in ("host16", "host8", "host16c")
@@ -718,10 +726,10 @@ class Decoder:
                 buf, inv_scale = ingest_i16_native(signal, l, m, coeff, out_len, pad_bucket(out_len),
                                                    bits=qbits)
                 if self.ingest == "host16c" and to_device:
-                    packed = self._pack_payload(buf, out_len, inv_scale)
+                    packed = self._pack_payload(buf, out_len, inv_scale, upload)
                     if packed is not None:
                         return packed
-                data = self._host_to_device(buf) if to_device else buf[:out_len]
+                data = self._host_to_device(buf, upload) if to_device else buf[:out_len]
                 return WorkPayload(data=data, work_true=out_len, inv_scale=inv_scale)
         # Quantized payloads tolerate the vectorized (reordered-sum)
         # resample: its ~1e-7 relative noise is far below the
@@ -744,13 +752,13 @@ class Decoder:
             buf = np.zeros(pad_bucket(work_true), dtype=work.dtype)
             buf[:work_true] = work
             if self.ingest == "host16c" and buf.dtype == np.int16:
-                packed = self._pack_payload(buf, work_true, inv_scale)
+                packed = self._pack_payload(buf, work_true, inv_scale, upload)
                 if packed is not None:
                     return packed
-            data = self._host_to_device(buf)
+            data = self._host_to_device(buf, upload)
         return WorkPayload(data=data, work_true=work_true, inv_scale=inv_scale)
 
-    def _pack_payload(self, buf_padded: np.ndarray, work_true: int, inv_scale: float):
+    def _pack_payload(self, buf_padded: np.ndarray, work_true: int, inv_scale: float, upload=None):
         """Encode a padded i16 work buffer with the lossless codec and
         upload the sealed buffer (``noaa_apt_tpu/graph/decode.py:697-745``).
         Returns None (the caller ships the plain i16 payload) when the
@@ -776,7 +784,7 @@ class Decoder:
             return None
         sealed = pk.seal_packed(p, n_esc_pad)
         return PackedWorkPayload(
-            buf=self._host_to_device(sealed.view(np.int32)), nb=nb, w_lo=p.w_lo, n_esc_pad=n_esc_pad,
+            buf=self._host_to_device(sealed.view(np.int32), upload), nb=nb, w_lo=p.w_lo, n_esc_pad=n_esc_pad,
             work_true=work_true, inv_scale=float(inv_scale), coeff=p.coeff,
         )
 

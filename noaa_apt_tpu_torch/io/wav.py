@@ -239,15 +239,21 @@ def _mmap_pcm16_mono(path) -> tuple[np.ndarray, int] | None:
         return None
 
 
-def load_device_ready(path) -> tuple[np.ndarray, Rate]:
+def load_device_ready(path, use_mmap: bool = True) -> tuple[np.ndarray, Rate]:
     """Like :func:`load`, but 16-bit PCM stays int16 so the decoder can
     ship half the bytes to the card and convert there (exactly equal to
     the reference's f32-of-raw-int values; the resample kernel reads
-    i16 directly).  A mono 16-bit PCM file is not even read: the
-    returned array is a read-only ``np.memmap`` over its data chunk."""
-    m = _mmap_pcm16_mono(path)
-    if m is not None:
-        arr, sr = m
-        return arr, Rate(sr)
+    i16 directly).  With ``use_mmap`` (the default) a mono 16-bit PCM
+    file is not even read: the returned array is a read-only
+    ``np.memmap`` over its data chunk.  Without it the samples are read
+    into RAM, and any 16-bit integer WAV still comes back as int16
+    (``noaa_apt_tpu/io/wav.py:382-402``)."""
+    if use_mmap:
+        m = _mmap_pcm16_mono(path)
+        if m is not None:
+            arr, sr = m
+            return arr, Rate(sr)
     signal, spec = load_wav(path, raw_int16=True)
+    if signal.dtype != np.int16 and spec.sample_format == "int" and spec.bits_per_sample == 16:
+        signal = signal.astype(np.int16)  # exact: values are in i16 range
     return signal, Rate(spec.sample_rate)

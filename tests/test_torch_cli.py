@@ -8,6 +8,7 @@ must agree under the +-1 / 0.1% rule and the port's finish stage, given
 the JAX package's grey rows, must give the JAX PNG exactly.
 """
 
+import json
 from datetime import datetime
 from pathlib import Path
 
@@ -159,11 +160,16 @@ def test_cli_unported_options_exit_1(tmp_path, caplog, pass_wav, flags, what):
 
 
 def test_cli_directory_gui_version_and_debug(tmp_path, caplog, capsys, pass_wav):
-    """A directory input and no input (the GUI) are refused; ``-v`` prints
-    the version; ``-d`` logs at debug level; ``-p`` overrides the
-    settings file's profile."""
-    assert cli.main([str(tmp_path), "-o", "out.png", "--device", "cpu"]) == 1
-    assert "a directory input is not ported yet" in caplog.text
+    """A directory input decodes every WAV in it (fleet mode); no input
+    (the GUI) is refused; ``-v`` prints the version; ``-d`` logs at debug
+    level; ``-p`` overrides the settings file's profile."""
+    d = tmp_path / "passes"
+    d.mkdir()
+    (d / "pass.wav").write_bytes(pass_wav.read_bytes())
+    assert cli.main([str(d), "-o", "fleet", "--device", "cpu"]) == 0
+    assert json.loads(Path("fleet/fleet_report.json").read_text())["ok"] == 1
+    assert png.read_png("fleet/pass.png").shape[1:] == (2080, 1)
+    assert "not ported yet" not in caplog.text
     assert cli.main(["--device", "cpu"]) == 1
     assert cli.main(["-v"]) == 0 and "version" in capsys.readouterr().out
     report: dict = {}

@@ -14,7 +14,7 @@ import torch
 
 from noaa_apt_tpu_torch.core.frequency import Rate
 from noaa_apt_tpu_torch.core.profiles import PROFILES
-from noaa_apt_tpu_torch.graph.decode import DecodeTables, Decoder
+from noaa_apt_tpu_torch.graph.decode import DecodeTables, Decoder, PackedWorkPayload
 from noaa_apt_tpu_torch.ops import demod as dm
 from noaa_apt_tpu_torch.ops import resample as rs
 from noaa_apt_tpu_torch.ops import select as sel
@@ -516,3 +516,51 @@ def test_cuda_batched_renders_launch_k3_once(cuda_device):
         want_gray, want_sync = dec.decode_render_input(s, len(s), Rate(48000))
         assert sync_pos == want_sync
         np.testing.assert_array_equal(gray, want_gray)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ingest", ["device", "host16c"])
+def test_cuda_fleet_matches_single_file_renders(cuda_device, tmp_path, monkeypatch, ingest):
+    """``decode_fleet`` on the card over 48 kHz and 11025 Hz passes and a
+    header-only WAV: exactly that one fails; each RGBA PNG is byte-equal to
+    the single-file CLI's of the same WAV and ingest; device ingest
+    launches K1, K2 and K3 once a pass, host16c K2 and K4 once a pass and
+    K3 once a dispatched group."""
+    from noaa_apt_tpu_torch import cli, ops
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.serve import decode_fleet
+
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path / "cfg"))
+    paths = []
+    for rate in (48000, 11025):
+        for copy in range(2):
+            paths.append(tmp_path / f"p{rate}_{copy}.wav")
+            wav.write_wav(paths[-1], _pcm_rows(rate, 24).astype(np.float32), wav.WavSpec(1, rate, 16, "int"))
+    trunc = tmp_path / "trunc.wav"
+    trunc.write_bytes(paths[0].read_bytes()[:44])
+    batches = []
+    real = Decoder.decode_render_batch
+    monkeypatch.setattr(Decoder, "decode_render_batch", lambda self, *a, **kw: batches.append(1) or real(self, *a, **kw))
+    ops.reset_launch_counts()
+    rep = decode_fleet([*paths, trunc], tmp_path / "fleet", ingest=ingest, gray_png="never", fleet_batch=4)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert [r.input_path for r in rep.failed] == [trunc] and len(rep.ok) == 4
+    n = len(paths)
+    if ingest == "device":
+        assert launches == {"polyphase_resample": n, "demod_fir_corr": n, "select_peaks": n, "unpack_sealed": 0}
+        assert not batches
+    else:
+        # K4 runs for the payloads that compress (the same C++ packer as on the CPU).
+        cpu = Decoder(PROFILES["standard"], device="cpu", ingest="host16c")
+        packed = sum(isinstance(cpu.prepare_work(*wav.load_device_ready(p), to_device=True), PackedWorkPayload)
+                     for p in paths)
+        assert packed >= 2
+        assert launches == {"polyphase_resample": 0, "demod_fir_corr": n, "select_peaks": len(batches),
+                            "unpack_sealed": packed}
+        assert 2 <= len(batches) <= n
+    assert rep.link["uploaded_MB"] > 0 and rep.link["up_wall_s"] > 0
+    for p, r in zip(paths, rep.ok):
+        single = tmp_path / f"single_{p.stem}.png"
+        assert cli.main([str(p), "-o", str(single), "-q", "--ingest", ingest]) == 0
+        assert single.read_bytes() == r.output_path.read_bytes()

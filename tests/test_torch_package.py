@@ -45,7 +45,7 @@ def test_port_never_loads_jax_or_the_jax_package():
             "noaa_apt_tpu_torch.post.telemetry", "noaa_apt_tpu_torch.post.imageext",
             "noaa_apt_tpu_torch.post.palette", "noaa_apt_tpu_torch.io.misc",
             "noaa_apt_tpu_torch.graph.debug", "noaa_apt_tpu_torch.graph.resample_tool",
-            "noaa_apt_tpu_torch.ops.pack", "noaa_apt_tpu_torch.native",
+            "noaa_apt_tpu_torch.ops.pack", "noaa_apt_tpu_torch.native", "noaa_apt_tpu_torch.serve",
             *(f"noaa_apt_tpu_torch.geo.{m}" for m in ("geometry", "sgp4", "tle", "orbit",
                                                        "shapefile", "states", "map_overlay"))
             } <= set(mods)
@@ -70,7 +70,7 @@ def test_source_scan_finds_no_jax_imports():
     assert len(files) > 15
     assert {PORT / "geo" / "map_overlay.py", PORT / "geo" / "sgp4.py", PORT / "io" / "misc.py",
             PORT / "graph" / "debug.py", PORT / "graph" / "resample_tool.py", PORT / "ops" / "pack.py",
-            PORT / "native" / "__init__.py"} <= set(files)
+            PORT / "native" / "__init__.py", PORT / "serve.py"} <= set(files)
     offenders = [str(p.relative_to(ROOT)) for p in files if _IMPORT.search(p.read_text())]
     assert offenders == []
 
