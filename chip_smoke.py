@@ -105,7 +105,38 @@ Phases, one JSON line each (``{"phase": ...}``):
    launches match the passes (device: K1, K2, K3 once a pass; host16c: K4
    and K2 once a packed pass, K3 once a group, the 24960 Hz copies on
    K1, K2, K3 alone).  One line per run: wall, realtime factor,
-   ``stage_totals``, ``link`` and the launches.
+   ``stage_totals``, ``link`` and the launches;
+13. ``profile_trace`` — the default CLI on the 48 kHz pass with
+   ``--profile-trace``: from its Chrome trace, the K1/K2/K3 kernel events
+   by their ``csrc`` names (each must be there), the card's busy ms (the
+   union of its kernel, copy and memset intervals), the traced window
+   (first event to last) and the idle share;
+14. ``steps`` — ``--wav-steps --raw-out`` on a 60-s 48 kHz pass and
+   ``--wav-steps --export-resample-filtered --raw-out`` on a 60-s
+   24960 Hz pass (l == 1: the grid stays): the PNG byte-equal to the
+   offline ``--raw-out`` run's and the raw signal equal to its, the step
+   WAVs those of the context's table, K1 twice, K2 and K3 once; then
+   ``--export-resample-filtered`` on 60-s 48 kHz and 11025 Hz passes.
+   ``twin_checks``: every K1 (the work-rate resample and the 1-tap
+   NoFilter decimation to 4160 Hz, at m = 1 where its full-rate signal
+   is written), K2 and K3 launch of these runs, recorded as the step
+   decode made it, ``torch.equal`` to its twin on the same inputs.
+   ``export_grid``: K1 at m = 1 ("block" at l 13, "class" at l 832, the
+   grid's ``ef``) ``torch.equal`` to its twin over the whole grid and on
+   three ``k0`` windows, timed as in phase 3 beside ``F.conv1d`` at
+   stride 1;
+15. ``stream`` — ``--stream --raw-out`` on the three 10-minute passes and
+   the 11025 Hz pass as raw s16 on stdin (a pipe) with ``--stream-update
+   100``: each PNG byte-equal to the offline ``--raw-out`` run's, the
+   sync lists equal, K1 and K2 launched once a chunk and K3 never; per run
+   the chunks, first-row latency, wall, realtime factor, the host greedy
+   fold's seconds (``fold_s``) and the median chunk's ms.
+   ``twin_checks``: the K1 and K2 launches of the first two chunks, of
+   every 32nd and of the last (zero-padded) one, on the chunk-sized
+   haloed windows as the stream made them, ``torch.equal`` to their
+   twins; the first chunk's K2 runs on a view that starts past its
+   buffer's first sample, and is also held to its twin on the whole
+   buffer.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -707,7 +738,7 @@ ALL_ONCE = {"polyphase_resample": 1, "demod_fir_corr": 1, "select_peaks": 1, "un
 
 def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k1_variant: str | None,
                     flags: tuple = (), expect: dict = ALL_ONCE, label: str = "98_percent",
-                    phase: str = "main_path") -> dict:
+                    phase: str = "main_path", pass_rows: int | None = None) -> dict:
     """One CLI run, with the launch counters set to 0 just before and read
     just after; raises unless each kernel launched ``expect`` times, K1 in
     ``k1_variant``, and the PNG holds the pass's rows.  Emits a ``phase``
@@ -736,9 +767,9 @@ def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k
         raise AssertionError(f"launches on the {rate} Hz {label} run: {launches}, expected {expect}")
     if k1_variant is not None and polyphase_resample.last_variant != k1_variant:
         raise AssertionError(f"K1 ran {polyphase_resample.last_variant} at {rate} Hz, not {k1_variant}")
-    rows = report["rows"]
-    if abs(rows - PASS_ROWS) > 2:
-        raise AssertionError(f"{rows} rows decoded at {rate} Hz ({label}), synthesized {PASS_ROWS}")
+    rows, pass_rows = report["rows"], pass_rows or PASS_ROWS
+    if abs(rows - pass_rows) > 2:
+        raise AssertionError(f"{rows} rows decoded at {rate} Hz ({label}), synthesized {pass_rows}")
     spacing = None
     if report["sync_positions"] is not None:
         gaps = np.diff(np.asarray(report["sync_positions"][1:-1]))
@@ -1212,6 +1243,353 @@ def fleet_phase(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr: in
     return {"device": device_launches, "host16c": host16c_launches, "batches": len(batches)}
 
 
+# The kernels' names in a trace (csrc/*.cu), by wrapper.
+TRACE_KERNELS = {"polyphase_resample": ("polyphase_kernel", "block_kernel", "class_kernel"),
+                 "demod_fir_corr": ("demod_fir_corr_kernel",),
+                 "select_peaks": ("select_summary_kernel", "select_walk_kernel")}
+GPU_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def union_us(intervals) -> float:
+    """Microseconds covered by the union of ``(start, end)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_trace_phase(torch, tmp: Path, wav48: Path, spr: int) -> dict:
+    """The default CLI on the 48 kHz pass with ``--profile-trace``: the
+    Chrome trace's K1/K2/K3 kernel events (each must be there), the card's
+    busy time (the union of its kernel, copy and memset intervals), the
+    traced window (first to last event) and the idle share.  Returns the
+    kernel event counts."""
+    report = main_path_phase(torch, wav48, tmp / "trace.png", 48000, spr, "block",
+                             ("-q", "--profile-trace", str(tmp / "trace")), label="profile_trace",
+                             phase="profile_trace_run")
+    events = [e for e in json.loads(Path(report["trace"]).read_text())["traceEvents"]
+              if "ts" in e and "dur" in e]
+    gpu = [e for e in events if e.get("cat") in GPU_EVENTS]
+    kernels = {}
+    for name, subs in TRACE_KERNELS.items():
+        hits = [(e, k) for e in gpu if e["cat"] == "kernel" for k in subs if k in e["name"]]
+        if not hits:
+            raise AssertionError(f"the trace holds no {name} kernel event ({subs})")
+        names = set()
+        for e, k in hits:  # the kernel's name and template arguments, without its parameters
+            j = e["name"].find(k)
+            names.add(e["name"][j : e["name"].find("(", j)])
+        kernels[name] = {"events": len(hits), "ms": sum(float(e["dur"]) for e, _ in hits) / 1e3,
+                         "names": sorted(names)}
+    busy = union_us((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in gpu) / 1e3
+    t0 = min(float(e["ts"]) for e in events)
+    window = (max(float(e["ts"]) + float(e["dur"]) for e in events) - t0) / 1e3
+    by_cat = {c: sum(float(e["dur"]) for e in gpu if e["cat"] == c) / 1e3 for c in GPU_EVENTS}
+    emit("profile_trace", rate=48000, trace=Path(report["trace"]).name, events=len(events),
+         gpu_events=len(gpu), kernels=kernels, gpu_ms_by_category=by_cat, gpu_busy_ms=busy,
+         window_ms=window, idle_share=1.0 - busy / window, cli_wall_s=report["wall_s"],
+         launches=report["launches"])
+    return {name: k["events"] for name, k in kernels.items()}
+
+
+class Recorder:
+    """Stands in for a kernel's wrapper during a main-path run: passes
+    every call through to ``fn`` and keeps the arguments and result of
+    the first two calls, of every 32nd and of the last, for
+    :func:`twin_checks`.  The wrapper still counts its own launches, so
+    the stand-in moves no count."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.kept, self.last = fn, 0, {}, None
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.last = (self.calls, args, kw, out)
+        if self.calls < 2 or self.calls % 32 == 0:
+            self.kept[self.calls] = (args, kw, out)
+        self.calls += 1
+        return out
+
+    def recorded(self) -> dict:
+        """Call index -> (args, kwargs, result), the last call included."""
+        if self.last is None:
+            return {}
+        i, args, kw, out = self.last
+        return {**self.kept, i: (args, kw, out)}
+
+
+def twin_checks(torch, label: str, k1: Recorder | None = None, k2: Recorder | None = None,
+                k3: Recorder | None = None) -> dict:
+    """Each recorded launch of K1, K2 and K3 held ``torch.equal`` to its
+    plain twin on the same inputs, and to a second launch of its wrapper
+    (which names K1's variant); K2 on a window that starts past its
+    buffer's first sample (a view of K1's output, as the stream's first
+    chunk passes it) is also launched on the whole buffer and held to the
+    twin there.  These launches come after the run's counts were read.
+    Emits and returns the shapes checked per kernel."""
+    from noaa_apt_tpu_torch.ops import resample as rs
+    from noaa_apt_tpu_torch.ops import select as sel
+    from noaa_apt_tpu_torch.ops import stage as st
+
+    out = {}
+    for i, (args, kw, y) in sorted((k1.recorded() if k1 else {}).items()):
+        x, bank, _, _, m, n_out = args
+        name = f"polyphase_resample@{label} call {i}"
+        assert_equal(torch, name, y, rs.polyphase_resample_plain(*args, **kw))
+        assert_equal(torch, f"{name} relaunched", rs.polyphase_resample(*args, **kw), y)
+        out.setdefault("polyphase_resample", []).append(
+            f"call {i}: {str(x.dtype)[6:]}[{x.shape[0]}] -> f32[{n_out}], l={bank.shape[0]} m={m} "
+            f"T={bank.shape[1]} k0={kw.get('k0', 0)}, {rs.polyphase_resample.last_variant}")
+    for i, (args, kw, (filt, corr)) in sorted((k2.recorded() if k2 else {}).items()):
+        y, rest = args[0], args[1:]
+        name = f"demod_fir_corr@{label} call {i}"
+        pf, pc = st.demod_fir_corr_plain(*args, **kw)
+        assert_equal(torch, f"{name}.filt", filt, pf)
+        assert_equal(torch, f"{name}.corr", corr, pc)
+        shape = f"call {i}: f32[{y.shape[0]}] at offset {y.storage_offset()}"
+        if y.storage_offset() > 0:
+            whole = y._base if y._base is not None else y
+            f_all, c_all = st.demod_fir_corr(whole, *rest, **kw)
+            pf, pc = st.demod_fir_corr_plain(whole, *rest, **kw)
+            assert_equal(torch, f"{name} whole buffer .filt", f_all, pf)
+            assert_equal(torch, f"{name} whole buffer .corr", c_all, pc)
+            shape += f", and its whole buffer f32[{whole.shape[0]}]"
+        out.setdefault("demod_fir_corr", []).append(shape)
+    for i, (args, kw, _) in sorted((k3.recorded() if k3 else {}).items()):
+        corr, n_valid, spr, md, max_peaks = args
+        name = f"select_peaks@{label} call {i}"
+        pk, kk = sel.select_peaks(corr, n_valid, spr, md, max_peaks)
+        ppk, pkk = sel.select_peaks_plain(corr, n_valid, spr, md, max_peaks)
+        assert_equal(torch, f"{name}.k", kk, pkk)
+        assert_equal(torch, f"{name}.peaks", pk, ppk)
+        out.setdefault("select_peaks", []).append(
+            f"call {i}: f32{list(corr.shape)}, n_valid={list(n_valid)}, spr={spr} md={md} "
+            f"max_peaks={max_peaks}")
+    emit("twin_checks", run=label, bit_equal=True, shapes=out)
+    return out
+
+
+def recorded_steps_run(torch, *a, **kw) -> dict:
+    """``main_path_phase(*a, **kw)`` with K1, K2 and K3 recorded where the
+    step decode (``graph/debug.py``) calls them, then :func:`twin_checks`
+    on every launch recorded: K1 at the work rate and the 1-tap NoFilter
+    K1 of the 4160 Hz step (at m = 1 where ``--wav-steps`` and
+    ``--export-resample-filtered`` write its full-rate signal), K2 and
+    K3.  The export grid's K1 (``expanded_filtered``) is not recorded
+    here: ``export_grid_case`` holds it.  Returns the run's report."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from noaa_apt_tpu_torch.graph import debug
+
+    rs = SimpleNamespace(**{k: getattr(debug.rs, k) for k in dir(debug.rs) if not k.startswith("__")})
+    k1 = rs.polyphase_resample = Recorder(debug.rs.polyphase_resample)
+    k2, k3 = Recorder(debug.demod_fir_corr), Recorder(debug.select_peaks)
+    with mock.patch.object(debug, "rs", rs), mock.patch.object(debug, "demod_fir_corr", k2), \
+            mock.patch.object(debug, "select_peaks", k3):
+        report = main_path_phase(torch, *a, **kw)
+    twin_checks(torch, f"{kw.get('label')} {Path(a[0]).name}", k1, k2, k3)
+    return report
+
+
+STEPS_LAUNCHES = {"polyphase_resample": 2, "demod_fir_corr": 1, "select_peaks": 1, "unpack_sealed": 0}
+STEPS_ROWS = 120  # 60 s of a pass
+
+
+def export_grid_case(torch, dev, wav_path: Path, variant: str) -> dict:
+    """K1 at m = 1 (``ops/resample.expanded_filtered``, the export grid's
+    ``ef``) on the float32 samples of ``wav_path``, as the step path runs
+    it: ``torch.equal`` to its twin over the whole grid and in three ``k0``
+    windows (start, middle, end), timed as in phase 3 beside ``F.conv1d``
+    at stride 1.  Emits and returns the record."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from noaa_apt_tpu_torch.core.frequency import Rate
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph.decode import _ingest_filter, _plan_resample_with_filter
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.ops import resample as rs
+
+    signal, rate = wav.load_device_ready(wav_path)
+    x = torch.from_numpy(np.asarray(signal, np.float32)).to(dev)
+    l, _, coeff = _plan_resample_with_filter(rate, Rate(STANDARD.work_rate), _ingest_filter(STANDARD, rate))
+    plan = rs.resample_plan(x.shape[0], l, 1, coeff)
+    p_c, s_c, bank, _, _ = rs.phase_tables(plan)
+    t = SimpleNamespace(bank=bank, p_c=p_c.astype(np.int32), s_c=s_c.astype(np.int32), l=l, m=1)
+    label = f"{rate.hz}/standard export grid, m = 1"
+    rec, y = resample_case(torch, dev, x, t, label, work=plan.out_len)
+    if rec["variant"] != variant:
+        raise AssertionError(f"{label}: K1 ran {rec['variant']}, not {variant}")
+    if not torch.equal(y, rs.expanded_filtered(x, l, coeff)):
+        raise AssertionError(f"{label}: expanded_filtered differs from the case's launch")
+    args = [torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c)]
+    n, w = plan.out_len, 1 << 20
+    windows = [(5, w), (n // 2 - 7, w), (n - w + 3, w - 3)]
+    for k0, size in windows:
+        got = rs.polyphase_resample(x, *args, 1, size, k0=k0)
+        assert_equal(torch, f"{label} k0={k0}", got, rs.polyphase_resample_plain(x, *args, 1, size, k0=k0))
+        assert_equal(torch, f"{label} k0={k0} vs one launch", got, y[k0 : k0 + size])
+    rec.update(k0_windows=windows, outputs=n, rate=rate.hz)
+    emit("export_grid", name="polyphase_resample", bit_equal=True, **rec)
+    return rec
+
+
+def steps_phase(torch, dev, tmp: Path, spr: int) -> dict:
+    """``--wav-steps`` on a 60-s 48 kHz pass, and ``--wav-steps
+    --export-resample-filtered`` on a 60-s 24960 Hz pass (l == 1: the grid
+    stays, and the full-rate causal FIRs are written, K1 at m = 1 with 41
+    taps and with NoFilter's one): each run's PNG byte-equal to the
+    offline ``--raw-out`` run's and its raw signal equal to that run's,
+    its step WAVs the context table's, K1 twice, K2 and K3 once.  Then
+    ``--export-resample-filtered`` alone on 60-s 48 kHz and 11025 Hz
+    passes (the same launches), and K1 at m = 1 at both rates
+    (``export_grid_case``).  Every K1, K2 and K3 launch of these runs is
+    held to its twin (``recorded_steps_run``).  Returns the launches of
+    each run and the K1 records."""
+    import numpy as np
+
+    from noaa_apt_tpu_torch import FINAL_RATE
+    from noaa_apt_tpu_torch.core.frequency import Rate
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.io.context import Context
+
+    paths = {rate: tmp / f"pass_{rate}_60s.wav" for rate in (48000, 11025, 24960)}
+    for rate, path in paths.items():
+        synth_wav(path, rate, STEPS_ROWS)
+    table = Context.decode(work_rate=Rate(STANDARD.work_rate), final_rate=Rate(FINAL_RATE)).steps_metadata
+    launches = {}
+    for rate, flags in ((48000, ("--wav-steps",)), (24960, ("--wav-steps", "--export-resample-filtered"))):
+        tag = f"{rate}_{'_'.join(f.strip('-').replace('-', '_') for f in flags)}"
+        main_path_phase(torch, paths[rate], tmp / f"steps_off_{rate}.png", rate, spr, None,
+                        ("-q", "--raw-out", str(tmp / f"steps_off_{rate}.npy")), label="60 s --raw-out",
+                        phase="steps", pass_rows=STEPS_ROWS)
+        out = tmp / f"steps_{tag}"
+        out.mkdir()
+        cwd = Path.cwd()
+        os.chdir(out)  # the step WAVs go to the working directory, as in the reference
+        try:
+            report = recorded_steps_run(torch, paths[rate], out / "steps.png", rate, spr, None,
+                                        ("-q", *flags, "--raw-out", str(tmp / f"steps_{tag}.npy")),
+                                        expect=STEPS_LAUNCHES, label=f"60 s {' '.join(flags)}", phase="steps",
+                                        pass_rows=STEPS_ROWS)
+        finally:
+            os.chdir(cwd)
+        want = sorted(f"{m.filename}.wav" for m in table if not m.id.startswith("telemetry")
+                      and (m.id != "resample_filtered" or "--export-resample-filtered" in flags))
+        got = sorted(p.name for p in out.glob("*.wav"))
+        if got != want:
+            raise AssertionError(f"{flags} at {rate} Hz wrote {got}, the table names {want}")
+        if (out / "steps.png").read_bytes() != (tmp / f"steps_off_{rate}.png").read_bytes():
+            raise AssertionError(f"the {flags} PNG at {rate} Hz differs from the --raw-out run's")
+        if not np.array_equal(np.load(tmp / f"steps_{tag}.npy"), np.load(tmp / f"steps_off_{rate}.npy")):
+            raise AssertionError(f"the {flags} raw signal at {rate} Hz differs from the --raw-out run's")
+        emit("steps_files", rate=rate, flags=list(flags), files=got,
+             bytes=sum((out / g).stat().st_size for g in got), png_byte_equal=True, raw_equal=True,
+             launches=report["launches"])
+        launches[tag] = report["launches"]
+    for rate in (48000, 11025):
+        r = recorded_steps_run(torch, paths[rate], tmp / f"export_{rate}.png", rate, spr, "block",
+                               ("-q", "--export-resample-filtered"), expect=STEPS_LAUNCHES,
+                               label="60 s --export-resample-filtered", phase="steps", pass_rows=STEPS_ROWS)
+        launches[f"export_{rate}"] = r["launches"]
+    records = [export_grid_case(torch, dev, paths[48000], "block"),
+               export_grid_case(torch, dev, paths[11025], "class")]
+    return {"launches": launches, "records": records}
+
+
+def stdin_pipe(data: bytes):
+    """A pipe whose read end stands in for ``sys.stdin``, fed with ``data``
+    by a thread in 64 KB writes: -> (stdin stand-in, the writer thread)."""
+    import threading
+    import types
+
+    r, w = os.pipe()
+
+    def feed():
+        with os.fdopen(w, "wb") as f:
+            for i in range(0, len(data), 1 << 16):
+                f.write(data[i : i + (1 << 16)])
+
+    thread = threading.Thread(target=feed, daemon=True)
+    thread.start()
+    return types.SimpleNamespace(buffer=os.fdopen(r, "rb", buffering=0)), thread
+
+
+def stream_phase(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr: int) -> dict:
+    """``--stream --raw-out`` on the three 10-minute passes (from the file)
+    and on the 11025 Hz pass as raw s16 on stdin (a pipe) with
+    ``--stream-update 100``: each PNG byte-equal to the offline
+    ``--raw-out`` run's and its sync list equal, K1 and K2 launched once a
+    chunk and K3 never (counts set to 0 just before each run, read just
+    after).  One line a run: chunks, first-row latency, wall, realtime
+    factor, the greedy fold's host seconds, the median chunk's ms.
+    Returns the launches of each run."""
+    from unittest import mock
+
+    import numpy as np
+
+    from noaa_apt_tpu_torch import cli, ops
+    from noaa_apt_tpu_torch import stream as stream_mod
+    from noaa_apt_tpu_torch.io import wav
+
+    offline = {}
+    for path, rate in ((wav48, 48000), (wav11, 11025), (wav25, 24960)):
+        offline[rate] = main_path_phase(torch, path, tmp / f"stream_offline_{rate}.png", rate, spr, None,
+                                        ("-q", "--raw-out", str(tmp / f"stream_offline_{rate}.npy")),
+                                        label="--raw-out", phase="stream_offline")
+    pcm = np.asarray(wav.load_device_ready(wav11)[0], "<i2").tobytes()
+    runs = [(str(path), rate, "file", ("--raw-out", str(tmp / f"stream_{rate}.npy")))
+            for path, rate in ((wav48, 48000), (wav11, 11025), (wav25, 24960))]
+    runs.append(("-", 11025, "stdin s16", ("--stream-rate", "11025", "--stream-update", "100")))
+    launches = {}
+    for src, rate, how, flags in runs:
+        out = tmp / f"stream_{rate}_{how.split()[0]}.png"
+        report: dict = {}
+        stdin, thread = sys.stdin, None
+        if src == "-":
+            sys.stdin, thread = stdin_pipe(pcm)
+        k1 = Recorder(stream_mod.polyphase_resample)
+        k2 = Recorder(stream_mod.demod_fir_corr)
+        try:
+            with mock.patch.object(stream_mod, "polyphase_resample", k1), \
+                    mock.patch.object(stream_mod, "demod_fir_corr", k2):
+                ops.reset_launch_counts()
+                rc = cli.main([src, "--stream", "-o", str(out), "-q", *flags], report=report)
+                torch.cuda.synchronize()
+                got = ops.launch_counts()
+        finally:
+            if thread is not None:
+                sys.stdin.buffer.close()
+                thread.join()
+            sys.stdin = stdin
+        if rc != 0:
+            raise AssertionError(f"--stream on the {rate} Hz pass ({how}) returned {rc}")
+        st = report["stream"]
+        if got != {"polyphase_resample": st["chunks"], "demod_fir_corr": st["chunks"], "select_peaks": 0,
+                   "unpack_sealed": 0}:
+            raise AssertionError(f"--stream at {rate} Hz ({how}): launches {got}, {st['chunks']} chunks")
+        if out.read_bytes() != (tmp / f"stream_offline_{rate}.png").read_bytes():
+            raise AssertionError(f"--stream at {rate} Hz ({how}): the PNG differs from the --raw-out run's")
+        if report["sync_positions"] != offline[rate]["sync_positions"]:
+            raise AssertionError(f"--stream at {rate} Hz ({how}): sync positions differ from the offline run")
+        if how == "file" and not np.array_equal(np.load(tmp / f"stream_{rate}.npy"),
+                                                np.load(tmp / f"stream_offline_{rate}.npy")):
+            raise AssertionError(f"--stream at {rate} Hz: the raw signal differs from the offline run's")
+        launches[f"{rate} {how}"] = got
+        twins = twin_checks(torch, f"--stream {rate} Hz {how}", k1, k2)
+        emit("stream", rate=rate, source=how, flags=list(flags), rows=report["rows"], chunks=st["chunks"],
+             launches=got, first_row_s=st["first_row_s"], wall_s=report["wall_s"], audio_s=st["audio_s"],
+             realtime_factor=st["audio_s"] / report["wall_s"], fold_s=st["fold_s"],
+             chunk_ms_median=statistics.median(st["chunk_ms"]), chunk_ms_max=max(st["chunk_ms"]),
+             png_byte_equal=True, sync_equal=True,
+             chunks_held_to_twin={k: len(v) for k, v in twins.items()})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1282,6 +1660,9 @@ def main() -> int:
         ingest_launches = ingest_path_phase(torch, tmp, wav48, wav11, spr)
         batch_k3 = batch_path_phase(torch, wav48)
         fleet = fleet_phase(torch, tmp, wav48, wav11, wav25, spr)
+        trace = profile_trace_phase(torch, tmp, wav48, spr)
+        steps = steps_phase(torch, dev, tmp, spr)
+        stream = stream_phase(torch, tmp, wav48, wav11, wav25, spr)
 
     sources = {
         "polyphase_resample": ("noaa_apt_tpu_torch/csrc/resample.cu", "noaa_apt_tpu/ops/resample.py:186"),
@@ -1298,7 +1679,10 @@ def main() -> int:
                  "launches": path_launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"],
-                 "fleet_launches": {"cli_device": fleet["device"][name], "host16c": fleet["host16c"][name]}}
+                 "fleet_launches": {"cli_device": fleet["device"][name], "host16c": fleet["host16c"][name]},
+                 "steps_launches": {run: n[name] for run, n in steps["launches"].items()},
+                 "stream_launches": {run: n[name] for run, n in stream.items()},
+                 "trace_events": trace.get(name)}
         if name == "polyphase_resample":
             entry["variant"] = r["variant"]
             entry["float32"] = {key: r["float32"][key] for key in (
@@ -1308,6 +1692,10 @@ def main() -> int:
                 {key: t[key] for key in ("shape", "variant", "launches", "max_abs_err", "ms", "device_ms",
                                          "plain_ms", "bound_ms", "bound_by", "library_ms", "tool_wall_s")}
                 for t in tool]
+            entry["export_grid"] = [
+                {key: t[key] for key in ("shape", "variant", "max_abs_err", "ms", "device_ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms", "k0_windows")}
+                for t in steps["records"]]
         if name == "select_peaks":
             entry.update({key: r[key] for key in ("summary_ms", "walk_ms", "jumps", "walk_steps",
                                                   "ns_per_jump")})

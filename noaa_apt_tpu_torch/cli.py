@@ -1,5 +1,5 @@
 """Command line of the port: WAV (or a raw ``.npy``) -> PNG, a directory of
-WAVs -> PNGs (fleet mode), and WAV -> WAV.
+WAVs -> PNGs (fleet mode), a live PCM stream -> PNG, and WAV -> WAV.
 
 Behavioral contract: the single-file decode branch and the resample
 branch of ``noaa_apt_tpu/cli.py:129-565`` for the ported options: every
@@ -21,14 +21,27 @@ With sync on and no ``--raw-out`` the decode takes the fused path
 :meth:`Decoder.prepare_work` -> :meth:`Decoder.decode_render`, then
 :func:`finish_image`), else :meth:`Decoder.decode` -> :func:`process`.
 A bad ``-m``, ``-s``, ``-t`` or ``-T`` prints the JAX CLI's message and
-returns 0, as that CLI does.  The other modes (``--wav-steps``,
-``--export-resample-filtered``, ``--stream``, ``--distributed``,
-``--multihost`` in fleet mode, no input: the GUI) exit 1 with "not ported
-yet" and write no file.
+returns 0, as that CLI does.  ``--wav-steps`` and
+``--export-resample-filtered`` take the step-exporting decode
+(:func:`graph.debug.decode_with_steps`, ``noaa_apt_tpu/cli.py:521-529``;
+with ``-r`` the tool's steps).  One departure from the JAX CLI, on
+purpose: ``--export-resample-filtered`` alone (sync on, no ``--raw-out``)
+takes the step decode too, on the reference's export grid, as that CLI's
+own comment intends (``noaa_apt_tpu/cli.py:521-526``), while the JAX CLI
+takes its fused path there and ignores the flag, so the two PNGs differ.  ``--stream`` decodes a WAV byte stream or
+raw PCM (``--stream-rate``, ``--stream-format``) from stdin (``-``), a
+pipe or a file as it arrives (:class:`stream.StreamingDecoder`), with a
+preview every ``--stream-update`` rows.  ``--profile-trace DIR`` records
+a ``torch.profiler`` trace of the whole run.  The modes not ported yet
+(``--distributed``, ``--multihost`` in fleet mode, no input: the GUI)
+exit 1 with "not ported yet" and write no file.
 
     python -m noaa_apt_tpu_torch in.wav -o out.png [-c telemetry] [-F] [-m yes -R auto] [--ingest host16c] [--device cpu]
     python -m noaa_apt_tpu_torch passes/ -o out_dir/ [--ingest host16c] [--fleet-png rgba] [--device cpu]
     python -m noaa_apt_tpu_torch in.wav -r 11025 -o out.wav [--device cpu]
+    python -m noaa_apt_tpu_torch in.wav -o out.png --wav-steps [--export-resample-filtered]
+    sdr_pipe | python -m noaa_apt_tpu_torch - --stream --stream-rate 11025 -o out.png [--stream-update 50]
+    python -m noaa_apt_tpu_torch in.wav -o out.png --profile-trace traces/
 """
 
 from __future__ import annotations
@@ -36,24 +49,31 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
+import socket
+import sys
 import time
 from datetime import datetime
 from pathlib import Path
 
 import numpy as np
+import torch
 
-from . import FINAL_RATE, __version__, err
+from . import FINAL_RATE, PX_PER_ROW, __version__, err, ops
 from .core.frequency import Rate
 from .core.profiles import PROFILES
 from .device import resolve_device
 from .geo.states import prefetch_states_async
 from .graph import resample_tool
-from .graph.decode import Decoder
+from .graph.debug import decode_with_steps
+from .graph.decode import Decoder, DecodeResult
 from .graph.process import finish_image, process
 from .io import config as cfg
 from .io import misc, png, wav
 from .io.context import Context
+from .post import contrast as ct
 from .serve import decode_fleet
+from .stream import StreamingDecoder
 from .types import (SAT_IDS, ColorSettings, Contrast, ContrastKind, MapSettings, OrbitSettings,
                     RefTime, Rotate)
 
@@ -114,9 +134,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--profile", choices=sorted(PROFILES),
                    help="DSP profile. Default: the settings file's (standard).")
     p.add_argument("--wav-steps", action="store_true",
-                   help="Export a WAV for every decoding step (not ported yet).")
-    p.add_argument("--export-resample-filtered", action="store_true",
-                   help="Export the expanded+filtered resampling step (not ported yet).")
+                   help="Export a WAV for every decoding step (debug).")
+    p.add_argument("--export-resample-filtered", action="store_true", help=(
+        "Export the expanded+filtered resampling step (very expensive). It also moves the "
+        "first resample's outputs to the reference's export grid."))
     p.add_argument("--rotate-image", action="store_true", help="Deprecated. Use --rotate instead.")
     p.add_argument("--distributed", metavar="N_CHIPS", type=int, default=0,
                    help="Sequence-shard the decode over N cards (not ported yet).")
@@ -134,7 +155,24 @@ def build_parser() -> argparse.ArgumentParser:
         "Fleet (directory) mode output format: 'auto' (default) writes single-channel "
         "grayscale PNGs when the image carries no colour information (the same pixels); "
         "'rgba' keeps 4-channel files byte-equal to single-file mode."))
-    p.add_argument("--stream", action="store_true", help="Live decode (not ported yet).")
+    p.add_argument("--stream", action="store_true", help=(
+        "Live decode. Read the input as a stream (a WAV byte stream or headerless raw PCM) "
+        "from stdin (input '-'), a pipe or a file, emitting image rows as they finalize and "
+        "the PNG at the end of the stream. Rows are bit-identical to the offline decode of "
+        "the same samples."))
+    p.add_argument("--stream-rate", metavar="HZ", type=int, help=(
+        "Sample rate of a headerless raw PCM stream (ignored for WAV streams, whose header "
+        "carries it)."))
+    p.add_argument("--stream-format", choices=["s16", "f32"], default="s16", help=(
+        "Sample format of a headerless raw PCM stream: s16 (little-endian int16) or f32. "
+        "Default: s16."))
+    p.add_argument("--stream-update", metavar="N_ROWS", type=int, default=0, help=(
+        "Rewrite the output PNG every N newly finalized rows during the stream (a live "
+        "preview with 98%% contrast); 0 writes only the final image. Default: 0."))
+    p.add_argument("--profile-trace", metavar="DIR", help=(
+        "Record a torch.profiler trace of the whole run (host ops, the card's kernels and "
+        "copies) into DIR as <host>.<pid>.trace.json, viewable in Perfetto or "
+        "chrome://tracing."))
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help=(
         "Where to decode or resample: the card (default) or the plain PyTorch path on the CPU."))
     return p
@@ -142,19 +180,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str | None:
     """The first option of ``args`` that the port does not have yet.
-    Fleet mode refuses ``--wav-steps`` and ``--distributed`` itself, as
-    the JAX CLI does (:func:`_fleet`)."""
+    Fleet and stream mode refuse ``--distributed`` themselves, as the JAX
+    CLI does (:func:`_fleet`, :func:`_stream_refusal`)."""
     if args.input_filename is None:
         return "the GUI (no input file)"
-    single = not Path(args.input_filename).is_dir()
-    for flag, name in (
-        (single and args.wav_steps, "--wav-steps"),
-        (args.export_resample_filtered, "--export-resample-filtered"),
-        (args.stream, "--stream"),
-        (single and args.distributed, "--distributed"),
-    ):
+    if args.distributed and not args.stream and not Path(args.input_filename).is_dir():
+        return "--distributed"
+    return None
+
+
+def _stream_refusal(args) -> str | None:
+    """The JAX CLI's message for an option that stream mode does not take
+    (``noaa_apt_tpu/cli.py:314-323``), or None."""
+    for flag, name in ((args.wav_steps, "--wav-steps"),
+                       (args.export_resample_filtered, "--export-resample-filtered"),
+                       (args.distributed, "--distributed")):
         if flag:
-            return name
+            return f"{name} is not supported in stream mode"
     return None
 
 
@@ -310,19 +352,67 @@ def _fleet(args, settings, contrast: Contrast, rotate: Rotate, orbit: OrbitSetti
 
 def main(argv=None, report: dict | None = None) -> int:
     """Decode one WAV (or re-process one ``.npy``) to a PNG, decode a
-    directory of WAVs (fleet mode), or resample one WAV (``-r``); returns
-    the exit code.  In fleet mode ``report``, if given, receives the
-    :class:`serve.FleetReport` under ``"fleet"``.  Otherwise ``report``, if given,
-    receives the wall seconds of each step (of the whole run for ``-r``),
-    the decoder's per-stage milliseconds and its ``telemetry`` stage (None
+    directory of WAVs (fleet mode), decode a stream (``--stream``), or
+    resample one WAV (``-r``); returns the exit code.  With
+    ``--profile-trace DIR`` the whole run is traced (:func:`_traced`).
+
+    ``report``, if given, receives in fleet mode the
+    :class:`serve.FleetReport` under ``"fleet"``; in stream mode the rows,
+    the sync positions, the wall seconds and, under ``"stream"``, the
+    chunks, the first row's and the audio's seconds, the greedy fold's
+    host seconds and each chunk's milliseconds.  Otherwise it receives
+    the wall seconds of each step (of the whole run for ``-r``), the
+    decoder's per-stage milliseconds and its ``telemetry`` stage (None
     where the fused telemetry path did not run), the host ingest's seconds
     (``ingest_s``, None for ``--ingest device``) and the bytes of the
     signal or payload copied to the device (``payload_bytes``) with that
-    copy's host-clock milliseconds (``upload_host_ms``)."""
+    copy's host-clock milliseconds (``upload_host_ms``).  A traced run
+    adds the trace's path (``trace``)."""
     args = build_parser().parse_args(argv)
     level = logging.DEBUG if args.debug else (logging.WARNING if args.quiet else logging.INFO)
     logging.basicConfig(level=level, format="%(levelname)s %(name)s: %(message)s")
     log.setLevel(level)  # where the root logger was set up before (basicConfig does nothing)
+    if args.profile_trace:
+        return _traced(args, report)
+    return _run(args, report)
+
+
+def _traced(args, report: dict | None) -> int:
+    """:func:`_run` under ``torch.profiler`` (``noaa_apt_tpu/cli.py:135-142``
+    wraps the JAX run in ``jax.profiler.trace``): host activity, plus the
+    card's when the run is on CUDA, exported as the Chrome trace
+    ``DIR/<host>.<pid>.trace.json``.  A run that launched a kernel on the
+    card but whose profile holds no CUDA event (the profiler could not
+    record the card) fails (exit 1) and writes no trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = args.device == "cuda" and args.input_filename is not None and not args.version
+    if cuda:
+        resolve_device("cuda")  # raises without CUDA, before the run
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    before = ops.launch_counts()
+    with profile(activities=activities) as prof:
+        rc = _run(args, report)
+        if cuda:
+            torch.cuda.synchronize()
+    if (cuda and ops.launch_counts() != before
+            and not any(e.device_type == DeviceType.CUDA for e in prof.events())):
+        log.error("the profiler recorded no CUDA activity on a run that launched kernels; "
+                  "no trace written")
+        return 1
+    out_dir = Path(args.profile_trace)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{socket.gethostname()}.{os.getpid()}.trace.json"
+    prof.export_chrome_trace(str(path))
+    log.info("Saved profiler trace to %s", path)
+    if report is not None:
+        report["trace"] = str(path)
+    return rc
+
+
+def _run(args, report: dict | None) -> int:
+    """The run of :func:`main` after the argument parse."""
     if args.version:
         print(f"noaa-apt-tpu-torch image decoder version {__version__}")
         return 0
@@ -332,11 +422,13 @@ def main(argv=None, report: dict | None = None) -> int:
         return 1
     device = resolve_device(args.device)  # raises without CUDA, before any work
     log.info("noaa-apt-tpu-torch image decoder version %s on %s", __version__, device)
-    settings = cfg.build_settings(cfg.load_de_settings(), args.profile)
+    settings = cfg.build_settings(cfg.load_de_settings(), args.profile, args.wav_steps,
+                                  args.export_resample_filtered)
 
     if args.resample is not None:
         t0 = time.perf_counter()
-        context = Context.resample(lambda p_, d_: log.info("%s", d_))
+        context = Context.resample(lambda p_, d_: log.info("%s", d_), settings.export_wav,
+                                   settings.export_resample_filtered)
         try:
             resample_tool.resample(context, settings, args.input_filename,
                                    args.output or "./output.wav", args.resample, device)
@@ -356,10 +448,16 @@ def main(argv=None, report: dict | None = None) -> int:
         return 0
     if not args.sync and contrast.kind in (ContrastKind.TELEMETRY, ContrastKind.HISTOGRAM):
         log.warning("Adjusting contrast without syncing, expect horrible results!")
+    context = Context.decode(lambda p_, d_: log.info("%s", d_), Rate(settings.work_rate),
+                             Rate(FINAL_RATE), settings.export_wav, settings.export_resample_filtered)
+    if args.stream:
+        refusal = _stream_refusal(args)
+        if refusal is not None:
+            print(refusal)
+            return 1
+        return _stream_decode(args, settings, contrast, rotate, orbit, context, device, out, report)
     if Path(args.input_filename).is_dir():
         return _fleet(args, settings, contrast, rotate, orbit, device, report)
-    context = Context.decode(lambda p_, d_: log.info("%s", d_), Rate(settings.work_rate),
-                             Rate(FINAL_RATE))
 
     t = [time.perf_counter()]
     decoder, sync_pos = None, None
@@ -374,8 +472,23 @@ def main(argv=None, report: dict | None = None) -> int:
         else:
             signal, rate = wav.load_device_ready(args.input_filename)
             t.append(time.perf_counter())
-            decoder = Decoder(settings.profile(), device=device, ingest=args.ingest)
-            if args.sync and not args.raw_out:
+            steps = settings.export_wav or settings.export_resample_filtered
+            decoder = None if steps else Decoder(settings.profile(), device=device, ingest=args.ingest)
+            if steps:
+                # The step-exporting decode (noaa_apt_tpu/cli.py:521-529).
+                # --export-resample-filtered alone routes here too: it moves
+                # the first resample to the reference's export grid.
+                flat, sync_pos = decode_with_steps(context, settings.profile(), signal, rate, args.sync,
+                                                   device)
+                if args.raw_out:
+                    np.save(args.raw_out, flat)
+                    log.info("Saved raw decoded signal to %s", args.raw_out)
+                t.append(time.perf_counter())
+                # Contrast on the card, as for Decoder.decode's rows.
+                rows = torch.from_numpy(flat.reshape(-1, PX_PER_ROW)).to(device)
+                img = process(DecodeResult(rows, rows.shape[0], sync_pos), contrast, rotate, color,
+                              orbit, context)
+            elif args.sync and not args.raw_out:
                 # Fused path: the same levels table as noaa_apt_tpu/cli.py:489-496.
                 if contrast.kind == ContrastKind.PERCENT:
                     levels = ("percent", contrast.percent)
@@ -426,3 +539,84 @@ def main(argv=None, report: dict | None = None) -> int:
             "telemetry_ms": stage_ms.get("telemetry"),
         })
     return 0
+
+
+def _stream_decode(args, settings, contrast: Contrast, rotate: Rotate, orbit: OrbitSettings | None,
+                   context: Context, device, out: str, report: dict | None) -> int:
+    """Live decode (``--stream``, ``noaa_apt_tpu/cli.py:568-641``): pull
+    about 1 s of PCM at a time from stdin (input ``-``), a pipe or a file
+    through :class:`stream.StreamingDecoder`, log rows as they finalize,
+    rewrite a preview every ``--stream-update`` rows, and at the end of
+    the stream save the PNG through :func:`process`.  The rows are the
+    offline decode's bit for bit, and their contrast runs on the card as
+    for :meth:`Decoder.decode`'s, so the PNG is the ``--raw-out`` run's
+    byte for byte."""
+    if args.input_filename == "-":
+        f, close = sys.stdin.buffer, False
+    else:
+        try:
+            f, close = open(args.input_filename, "rb"), True
+        except OSError as e:
+            print(f"Could not open stream input: {e}")
+            return 1
+    rows: list = []
+    t0 = time.perf_counter()
+    first_row_s, since_update, n_in = None, 0, 0
+    try:
+        color = _color_settings(args, settings)
+        reader = wav.PcmStreamReader(f, rate=args.stream_rate, fmt="auto", raw_fmt=args.stream_format)
+        log.info("stream: %d Hz, %s samples", reader.sample_rate, reader.spec.sample_format)
+        sd = StreamingDecoder(settings.profile(), Rate(reader.sample_rate), sync=args.sync, device=device)
+        while True:
+            chunk = reader.read(reader.sample_rate)  # about 1 s of audio per pull
+            done = chunk is None
+            if not done:
+                n_in += chunk.shape[0]
+            new = sd.finish() if done else sd.push(chunk)
+            if new.shape[0]:
+                if first_row_s is None:
+                    first_row_s = time.perf_counter() - t0
+                    log.info("stream: first row after %.2f s", first_row_s)
+                rows.append(new)
+                since_update += new.shape[0]
+                context.status(0.1, f"Streaming: {sd.n_rows} rows ({sd.n_rows / 2:.0f} s of pass)")
+            if args.stream_update and since_update >= args.stream_update and rows:
+                _write_stream_preview(rows, out)
+                since_update = 0
+            if done:
+                break
+        if not rows:
+            print("Stream ended before any image rows were decoded")
+            return 1
+        image = np.concatenate(rows)
+        if args.raw_out:
+            np.save(args.raw_out, image.reshape(-1))
+            log.info("Saved raw decoded signal to %s", args.raw_out)
+        result = DecodeResult(torch.from_numpy(image).to(device), image.shape[0], sd.sync_positions)
+        png.write_png(out, process(result, contrast, rotate, color, orbit, context))
+    except err.AptError as e:
+        log.error("%s", e)
+        return 1
+    finally:
+        if close:
+            f.close()
+    wall = time.perf_counter() - t0
+    log.info("Saved %s (%d rows; first row at %.2f s, stream done in %.2f s)", out, image.shape[0],
+             first_row_s, wall)
+    if report is not None:
+        report.update({
+            "rows": int(image.shape[0]), "sync_positions": sd.sync_positions, "wall_s": wall,
+            "stream": {"rate": reader.sample_rate, "chunks": sd.chunks, "first_row_s": first_row_s,
+                       "audio_s": n_in / reader.sample_rate, "fold_s": sd.fold_s,
+                       "chunk_ms": list(sd.chunk_ms)},
+        })
+    return 0
+
+
+def _write_stream_preview(rows: list, out: str) -> None:
+    """Rewrite ``out`` with a 98%-stretch grayscale of the rows so far
+    (``--stream-update``, ``noaa_apt_tpu/cli.py:644-657``): a cheap live
+    preview on the host; the final write goes through :func:`process`."""
+    flat = np.concatenate(rows).reshape(-1)
+    low, high = ct.percent(flat, 0.98)
+    png.write_png(out, ct.map_signal_u8(flat, low, high).reshape(-1, PX_PER_ROW))

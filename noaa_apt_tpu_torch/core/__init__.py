@@ -1,2 +1,2 @@
 from .frequency import Freq, Rate
-from .filters import Lowpass, LowpassDcRemoval, kaiser, bessel_i0
+from .filters import Lowpass, LowpassDcRemoval, NoFilter, kaiser, bessel_i0

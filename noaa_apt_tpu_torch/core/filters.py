@@ -106,6 +106,17 @@ def kaiser(atten: float, delta_w: Freq) -> np.ndarray:
 
 
 @dataclass(frozen=True)
+class NoFilter:
+    """Impulse (reference ``filters.rs:48-54``)."""
+
+    def design(self) -> np.ndarray:
+        return np.array([1.0], dtype=np.float32)
+
+    def resample(self, input_rate: Rate, output_rate: Rate) -> "NoFilter":
+        return self
+
+
+@dataclass(frozen=True)
 class Lowpass:
     """Kaiser-windowed sinc lowpass (reference ``filters.rs:56-95``).
 

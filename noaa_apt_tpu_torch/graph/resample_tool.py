@@ -5,8 +5,9 @@ with a lowpass at half the smaller rate, write 16-bit WAV, copy the
 modification timestamp — as ``noaa_apt_tpu/graph/resample_tool.py``
 ports it, with the same status strings and progress fractions.  The
 resample runs on ``device`` (the card by default) through kernel K1
-(``graph/debug.resample``); the f32 samples that ``load_wav`` gives make
-K1 run its "phase" variant.
+(``graph/debug.resample``) on the f32 samples that ``load_wav`` gives; a
+context with ``export_wav`` writes the reference's resample steps, and
+with ``export_resample_filtered`` the resample takes the export grid.
 """
 
 from __future__ import annotations

@@ -8,9 +8,9 @@ a per-mode ordered metadata table (4 steps for resample, 17 for
 decode).  Unknown or out-of-order step ids are ignored, exactly as the
 reference does (``context.rs:137-155``).
 
-In the port, the telemetry steps 12-16 come from
-``post/telemetry.telemetry_from_stats``; the decode steps 0-11 wait for
-the step-export slice (``--wav-steps`` is not ported yet).
+In the port, the decode steps 0-11 come from
+``graph/debug.decode_with_steps`` (``--wav-steps``) and the telemetry
+steps 12-16 from ``post/telemetry``.
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ Behavioral contract: reference ``src/wav.rs`` (via the hound crate):
 
 Implemented directly over the RIFF layout with NumPy (the stdlib
 ``wave`` module cannot read float WAVs).  A copy of
-``noaa_apt_tpu/io/wav.py`` without the live-stream reader (the port's
-streaming slice is still to come).
+``noaa_apt_tpu/io/wav.py``, the live-stream reader (:class:`PcmStreamReader`,
+``--stream``) included.
 """
 
 from __future__ import annotations
@@ -187,6 +187,148 @@ def load(path) -> tuple[np.ndarray, Rate]:
     """Reference ``noaa_apt::load`` (``noaa_apt.rs:114-130``)."""
     signal, spec = load_wav(path)
     return signal, Rate(spec.sample_rate)
+
+
+class PcmStreamReader:
+    """Incremental PCM source for live decoding (``cli --stream``).
+
+    Wraps a binary file object (stdin, a pipe, a growing file) holding
+    either a WAV byte stream — the header is parsed up front, with the
+    same format support and truncation tolerance as :func:`load_wav` —
+    or headerless raw PCM, for which ``rate`` (Hz) and ``fmt``
+    (``"s16"`` little-endian i16, or ``"f32"``) must describe the
+    bytes.  ``fmt="auto"`` sniffs the first 12 bytes: RIFF/WAVE means
+    WAV, anything else raw PCM of format ``raw_fmt`` (requiring
+    ``rate``).
+
+    ``read(max_frames)`` returns the next float32 mono chunk at the
+    same scale as :func:`load_wav` (raw integer scale for int formats),
+    keeping channel 0 of multichannel data; ``None`` signals EOF.
+
+    Data-chunk size semantics: a real declared size is honored (so
+    trailing LIST/INFO/id3 metadata chunks are not decoded as audio,
+    matching the offline loader), but the live-source placeholders
+    0, 0xFFFFFFFF and 0x7FFFFFFE mean "unknown" and data is read until
+    the stream ends; a stream that ends early is truncation-tolerated
+    either way.  Unlike :func:`load_wav` (which scans the whole file,
+    last fmt/data chunk winning), a stream cannot seek: the FIRST data
+    chunk is decoded and ``fmt`` must precede it.
+    """
+
+    def __init__(
+        self, fileobj, rate: int | None = None, fmt: str = "auto", raw_fmt: str = "s16"
+    ):
+        self._f = fileobj
+        self._buf = b""
+        self._eof = False
+        self._data_left = None  # bytes left of a declared data chunk
+        if fmt not in ("auto", "s16", "f32"):
+            raise err.InvalidInputError(f"stream format must be s16 or f32, got {fmt!r}")
+        if raw_fmt not in ("s16", "f32"):
+            raise err.InvalidInputError(
+                f"stream format must be s16 or f32, got {raw_fmt!r}"
+            )
+
+        head = b""
+        if fmt == "auto":
+            head = self._read_exact(12)
+            if len(head) >= 12 and head[0:4] == b"RIFF" and head[8:12] == b"WAVE":
+                self._init_wav()
+                return
+            # Not a WAV: the sniffed bytes are raw PCM payload.
+            self._buf = head + self._buf
+            fmt = raw_fmt
+        if rate is None:
+            raise err.InvalidInputError(
+                "raw PCM stream needs an explicit sample rate (--stream-rate)"
+            )
+        self._audio_fmt = _FMT_PCM if fmt == "s16" else _FMT_FLOAT
+        self._bits = 16 if fmt == "s16" else 32
+        self._channels = 1
+        self.spec = WavSpec(1, int(rate), self._bits, "int" if fmt == "s16" else "float")
+
+    def _read_exact(self, n: int) -> bytes:
+        """Up to n bytes, short only at EOF (pipes may return less per read)."""
+        out = b""
+        while len(out) < n and not self._eof:
+            b = self._f.read(n - len(out))
+            if not b:
+                self._eof = True
+                break
+            out += b
+        return out
+
+    def _init_wav(self) -> None:
+        fmt_body = None
+        while True:
+            hdr = self._read_exact(8)
+            if len(hdr) < 8:
+                raise err.WavOpenError("stream ended before a WAV data chunk")
+            cid = hdr[0:4]
+            (size,) = struct.unpack_from("<I", hdr, 4)
+            if cid == b"data":
+                # Honor the declared size so trailing metadata chunks
+                # (LIST/INFO, id3) are not decoded as audio — EXCEPT
+                # the live-source placeholders (0, 0xFFFFFFFF, and the
+                # streaming-RIFF 0x7FFFFFFE convention), which mean
+                # "unknown: read to end of stream".
+                self._data_left = (
+                    None if size in (0, 0xFFFFFFFF, 0x7FFFFFFE) else size
+                )
+                break
+            body = self._read_exact(size + (size & 1))
+            if cid == b"fmt ":
+                fmt_body = body[:size]
+        if fmt_body is None or len(fmt_body) < 16:
+            raise err.WavOpenError("WAV stream: missing or short fmt chunk before data")
+        (audio_fmt, channels, sample_rate, _br, _ba, bits) = struct.unpack_from(
+            "<HHIIHH", fmt_body, 0
+        )
+        if audio_fmt == _FMT_EXTENSIBLE and len(fmt_body) >= 26:
+            (audio_fmt,) = struct.unpack_from("<H", fmt_body, 24)
+        if channels < 1:
+            raise err.WavOpenError("WAV has zero channels")
+        if channels != 1:
+            log.warning(
+                "WAV stream has %d channels (probably stereo), processing only the first one",
+                channels,
+            )
+        # Validate format support now, not at the first read.
+        _decode_pcm(b"", audio_fmt, bits)
+        self._audio_fmt, self._bits, self._channels = audio_fmt, bits, channels
+        self.spec = WavSpec(
+            channels, sample_rate, bits,
+            "float" if audio_fmt == _FMT_FLOAT else "int",
+        )
+
+    @property
+    def sample_rate(self) -> int:
+        return self.spec.sample_rate
+
+    def read(self, max_frames: int) -> np.ndarray | None:
+        """Next float32 chunk of up to ``max_frames`` mono frames;
+        ``None`` at end of stream (or of the declared data chunk)."""
+        frame_bytes = self._channels * (self._bits // 8)
+        want = max_frames * frame_bytes
+        if self._data_left is not None:
+            want = min(want, self._data_left + len(self._buf))
+        if len(self._buf) < want and not self._eof:
+            got = self._read_exact(want - len(self._buf))
+            if self._data_left is not None:
+                self._data_left -= len(got)
+            self._buf += got
+        n_frames = len(self._buf) // frame_bytes
+        if n_frames == 0:
+            # Anything left is a partial frame — dropped, like load_wav.
+            return None
+        take, self._buf = (
+            self._buf[: n_frames * frame_bytes],
+            self._buf[n_frames * frame_bytes :],
+        )
+        _, arr = _decode_pcm(take, self._audio_fmt, self._bits)
+        if self._channels != 1:
+            arr = arr[:: self._channels]
+        return arr.astype(np.float32)
 
 
 def _mmap_pcm16_mono(path) -> tuple[np.ndarray, int] | None:

@@ -102,7 +102,7 @@ def causal_tables(coeff: np.ndarray):
     not bit for bit."""
     coeff = np.asarray(coeff, np.float32)
     zero = np.zeros(1, np.int32)
-    return zero, zero.copy(), np.ascontiguousarray(coeff[::-1][None, :])
+    return zero, zero.copy(), coeff[::-1].copy()[None, :]  # a copy: one tap has a negative stride
 
 
 def causal_input(x: torch.Tensor, n_taps: int) -> torch.Tensor:
@@ -438,3 +438,17 @@ def fast_resample(x: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
         x, torch.from_numpy(bank).to(dev), torch.from_numpy(p_c.astype(np.int32)).to(dev),
         torch.from_numpy(s_c.astype(np.int32)).to(dev), plan.m, plan.out_len,
     )
+
+
+def expanded_filtered(x: torch.Tensor, l: int, coeff: np.ndarray) -> torch.Tensor:
+    """The zero-stuffed, filtered signal at the interpolated rate, what
+    ``--export-resample-filtered`` dumps (``dsp.rs:265-273``;
+    ``noaa_apt_tpu/ops/resample.py:expanded_filtered``):
+
+        ef[i] = sum_j coeff[j] * up[i + j]    for i < n*l - offset,
+
+    i.e. the resampler's windows at ``t = offset + i`` with stride 1.  That
+    is K1 at ``m = 1`` over the same polyphase tables: ``l`` times as many
+    outputs as ``x`` has samples (374 M at 48 kHz standard for a
+    10-minute pass)."""
+    return fast_resample(x, resample_plan(int(x.shape[0]), l, 1, coeff))

@@ -148,15 +148,192 @@ def test_cli_raw_out_then_npy_matches_jax(tmp_path, pass_wav):
         j_process(jraw, JContrast.minmax(), JRotate.NO))
 
 
-@pytest.mark.parametrize("flags,what", [
-    (["--wav-steps"], "--wav-steps"), (["--export-resample-filtered"], "--export-resample-filtered"),
-    (["--stream"], "--stream"), (["--distributed", "2"], "--distributed"),
-    (["--ingest", "host16", "--stream"], "--stream"),
-])
+@pytest.mark.parametrize("flags,what", [(["--distributed", "2"], "--distributed")])
 def test_cli_unported_options_exit_1(tmp_path, caplog, pass_wav, flags, what):
     rc = cli.main([str(pass_wav), "-o", "out.png", "--device", "cpu", *flags])
     assert rc == 1 and not Path("out.png").exists()
     assert f"{what} is not ported yet" in caplog.text
+
+
+@pytest.fixture(scope="module")
+def steps_pass(tmp_path_factory):
+    """A 14-row pass at 48000 Hz (l = 13, so the export grid stays small)
+    and its offline ``--raw-out`` run's PNG and raw signal."""
+    d = tmp_path_factory.mktemp("steps")
+    signal, _ = synth_recording(n_rows=14, sample_rate=48000, noise_db=20.0, seed=5)
+    wav.write_wav(d / "pass.wav", signal, wav.WavSpec(1, 48000, 16, "int"))
+    assert cli.main([str(d / "pass.wav"), "-o", str(d / "off.png"), "--device", "cpu", "-q",
+                     "--raw-out", str(d / "off.npy")]) == 0
+    return d
+
+
+@pytest.mark.parametrize("flags", [["--wav-steps"], ["--export-resample-filtered"], ["--stream"],
+                                   ["--ingest", "host16", "--stream"]], ids=" ".join)
+def test_cli_ported_debug_and_stream_options(tmp_path, monkeypatch, steps_pass, flags):
+    """The step export and the stream against the JAX CLI, each with
+    ``--raw-out`` (which the JAX CLI needs to take its step path for
+    ``--export-resample-filtered`` alone): the raw signals within 1e-4 of
+    their peak, the grey rows by the +-1 / 0.1% rule, the same step WAVs.
+    Off the export grid the port's run is its offline ``--raw-out`` run,
+    raw signal and PNG bit for bit; the export grid moves the samples."""
+    wav_path = steps_pass / "pass.wav"
+    for name in ("jax", "port"):
+        (tmp_path / name).mkdir()
+    monkeypatch.chdir(tmp_path / "jax")
+    assert jax_cli([str(wav_path), "-o", "out.png", "-q", *flags, "--raw-out", "out.npy"]) == 0
+    monkeypatch.chdir(tmp_path / "port")
+    report: dict = {}
+    assert cli.main([str(wav_path), "-o", "out.png", "--device", "cpu", "-q", *flags,
+                     "--raw-out", "out.npy"], report=report) == 0
+    raw, jraw = np.load("out.npy"), np.load(tmp_path / "jax" / "out.npy")
+    assert raw.shape == jraw.shape
+    assert float(np.abs(raw - jraw).max()) <= 1e-4 * float(np.abs(jraw).max())
+    _u8_close(png.read_png("out.png")[..., 0], np.asarray(Image.open(tmp_path / "jax" / "out.png"))[..., 0])
+    steps = sorted(p.name for p in Path(".").glob("*.wav"))
+    assert steps == sorted(p.name for p in (tmp_path / "jax").glob("*.wav"))
+    assert (len(steps) == 10) == ("--wav-steps" in flags)
+    off = np.load(steps_pass / "off.npy")
+    if "--export-resample-filtered" in flags:
+        assert not np.array_equal(raw, off)
+    else:
+        np.testing.assert_array_equal(raw, off)
+        assert Path("out.png").read_bytes() == (steps_pass / "off.png").read_bytes()
+    assert len(report["sync_positions"]) >= 13
+    if "--stream" in flags:
+        assert report["stream"]["chunks"] >= 2 and report["stream"]["audio_s"] == pytest.approx(7.0, abs=0.01)
+
+
+def test_cli_export_resample_filtered_alone_departs_from_jax(tmp_path, monkeypatch, steps_pass):
+    """``--export-resample-filtered`` without ``--raw-out``: the JAX CLI
+    takes its fused path, where the flag changes nothing (its PNG is its
+    run without the flag), while the port takes the step decode on the
+    export grid by design (its PNG is its ``--raw-out`` run's byte for
+    byte), so the two PNGs differ."""
+    wav_path = str(steps_pass / "pass.wav")
+    for name in ("jax", "port"):
+        (tmp_path / name).mkdir()
+    monkeypatch.chdir(tmp_path / "jax")
+    assert jax_cli([wav_path, "-o", "flag.png", "-q", "--export-resample-filtered"]) == 0
+    assert jax_cli([wav_path, "-o", "plain.png", "-q"]) == 0
+    jflag = np.asarray(Image.open("flag.png"))
+    np.testing.assert_array_equal(jflag, np.asarray(Image.open("plain.png")))
+    monkeypatch.chdir(tmp_path / "port")
+    assert cli.main([wav_path, "-o", "flag.png", "--device", "cpu", "-q", "--export-resample-filtered"]) == 0
+    assert cli.main([wav_path, "-o", "raw.png", "--device", "cpu", "-q", "--export-resample-filtered",
+                     "--raw-out", "raw.npy"]) == 0
+    assert Path("flag.png").read_bytes() == Path("raw.png").read_bytes()
+    assert Path("flag.png").read_bytes() != (steps_pass / "off.png").read_bytes()
+    assert not np.array_equal(png.read_png("flag.png")[..., 0], jflag[..., 0])
+    assert not list(Path(".").glob("*.wav"))
+
+
+class _ChunkedPipe:
+    """A binary stream that returns at most ``chunk`` bytes per read: a pipe
+    that never hands over the whole recording at once."""
+
+    def __init__(self, data: bytes, chunk: int = 777):
+        self._data, self._i, self._chunk = data, 0, chunk
+
+    def read(self, n: int) -> bytes:
+        n = min(n, self._chunk)
+        b = self._data[self._i : self._i + n]
+        self._i += len(b)
+        return b
+
+
+def test_cli_stream_stdin_and_raw_pcm_match_offline(tmp_path, monkeypatch, short_pass):
+    """``--stream`` from stdin (a WAV byte stream in 777-byte reads, then
+    raw s16 with ``--stream-rate`` and ``--stream-update``) and from a raw
+    PCM file: each PNG is the offline ``--raw-out`` run's byte for byte,
+    the previews were written, and the raw PCM run's grey rows match the
+    JAX CLI's."""
+    import sys
+    from types import SimpleNamespace
+
+    assert cli.main([str(short_pass), "-o", "off.png", "--device", "cpu", "-q", "--raw-out", "off.npy"]) == 0
+    monkeypatch.setattr(sys, "stdin", SimpleNamespace(buffer=_ChunkedPipe(short_pass.read_bytes())))
+    assert cli.main(["-", "--stream", "-o", "stdin.png", "--device", "cpu", "-q", "--raw-out", "st.npy"]) == 0
+    np.testing.assert_array_equal(np.load("st.npy"), np.load("off.npy"))
+    assert Path("stdin.png").read_bytes() == Path("off.png").read_bytes()
+
+    samples, _ = wav.load_wav(short_pass, raw_int16=True)
+    Path("raw.pcm").write_bytes(samples.astype("<i2").tobytes())
+    previews = []
+    real = cli._write_stream_preview
+    monkeypatch.setattr(cli, "_write_stream_preview", lambda rows, out: (previews.append(out), real(rows, out)))
+    monkeypatch.setattr(sys, "stdin", SimpleNamespace(buffer=_ChunkedPipe(Path("raw.pcm").read_bytes())))
+    assert cli.main(["-", "--stream", "--stream-rate", str(RATE), "--stream-update", "4", "-o", "upd.png",
+                     "--device", "cpu", "-q"]) == 0
+    assert previews and set(previews) == {"upd.png"}
+    assert Path("upd.png").read_bytes() == Path("off.png").read_bytes()
+    assert cli.main(["raw.pcm", "--stream", "--stream-rate", str(RATE), "-o", "file.png", "--device", "cpu",
+                     "-q"]) == 0
+    assert Path("file.png").read_bytes() == Path("off.png").read_bytes()
+    assert jax_cli(["raw.pcm", "--stream", "--stream-rate", str(RATE), "-o", "jax.png", "-q"]) == 0
+    _u8_close(png.read_png("file.png")[..., 0], np.asarray(Image.open("jax.png"))[..., 0])
+
+
+@pytest.mark.parametrize("flags,name", [(["--wav-steps"], "--wav-steps"),
+                                        (["--export-resample-filtered"], "--export-resample-filtered"),
+                                        (["--distributed", "2"], "--distributed")])
+def test_cli_stream_refusals_match_jax(tmp_path, capsys, short_pass, flags, name):
+    assert jax_cli([str(short_pass), "--stream", "-o", "jax.png", "-q", *flags]) == 1
+    jout = capsys.readouterr().out.splitlines()
+    assert cli.main([str(short_pass), "--stream", "-o", "port.png", "--device", "cpu", "-q", *flags]) == 1
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1] == jout[-1] == f"{name} is not supported in stream mode"
+    assert not Path("port.png").exists()
+
+
+def test_cli_stream_errors_match_jax(tmp_path, caplog, capsys):
+    """Raw PCM without ``--stream-rate`` (the JAX CLI raises its
+    InvalidInputError, the port logs it and exits 1), and a stream too
+    short for a row (both print the same line and exit 1)."""
+    from noaa_apt_tpu import err as jerr
+
+    Path("raw.pcm").write_bytes(b"\x00\x01" * 100)
+    with pytest.raises(jerr.InvalidInputError) as info:
+        jax_cli(["-q", "raw.pcm", "--stream"])
+    assert cli.main(["-q", "raw.pcm", "--stream", "--device", "cpu"]) == 1
+    assert str(info.value) in caplog.text and "--stream-rate" in str(info.value)
+    capsys.readouterr()
+    assert jax_cli(["-q", "raw.pcm", "--stream", "--stream-rate", "11025"]) == 1
+    jout = capsys.readouterr().out.splitlines()
+    assert cli.main(["-q", "raw.pcm", "--stream", "--stream-rate", "11025", "--device", "cpu"]) == 1
+    assert capsys.readouterr().out.splitlines()[-1] == jout[-1] == (
+        "Stream ended before any image rows were decoded")
+
+
+def test_cli_profile_trace_writes_chrome_trace(tmp_path, short_pass):
+    """``--profile-trace DIR`` writes ``DIR/<host>.<pid>.trace.json``, a
+    Chrome trace of the run's host ops, beside the usual PNG."""
+    import json as _json
+    import os
+    import socket
+
+    report: dict = {}
+    assert cli.main([str(short_pass), "-o", "t.png", "--device", "cpu", "-q", "--profile-trace", "tr"],
+                    report=report) == 0
+    traces = list(Path("tr").glob("*.trace.json"))
+    assert [p.name for p in traces] == [f"{socket.gethostname()}.{os.getpid()}.trace.json"]
+    assert report["trace"] == str(traces[0]) and png.png_size("t.png") == (2080, report["rows"])
+    events = _json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_cli_profile_trace_refuses_a_trace_without_cuda_events(tmp_path, short_pass, monkeypatch, caplog):
+    """A CUDA run that launched kernels but whose profile holds no CUDA
+    event exits 1 and writes no trace (here the card is stood in for by
+    the CPU and a launch counter that moves)."""
+    import itertools
+
+    ticks = itertools.count()
+    monkeypatch.setattr(cli, "resolve_device", lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(cli.ops, "launch_counts", lambda: {"polyphase_resample": next(ticks)})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    assert cli.main([str(short_pass), "-o", "t.png", "-q", "--profile-trace", "tr"]) == 1
+    assert not list(Path("tr").glob("*"))
+    assert "recorded no CUDA activity" in caplog.text
 
 
 def test_cli_directory_gui_version_and_debug(tmp_path, caplog, capsys, pass_wav):

@@ -564,3 +564,79 @@ def test_cuda_fleet_matches_single_file_renders(cuda_device, tmp_path, monkeypat
         single = tmp_path / f"single_{p.stem}.png"
         assert cli.main([str(p), "-o", str(single), "-q", "--ingest", ingest]) == 0
         assert single.read_bytes() == r.output_path.read_bytes()
+
+
+# K1 at m = 1 (the export grid, ops/resample.expanded_filtered): (profile,
+# rate, variant). The block variant's CTA then spans 256 + R samples for
+# 256*13 outputs, the class variant's segment T + 1 samples.
+K1_M1_CASES = [("standard", 48000, "block"), ("standard", 11025, "class"), ("fast", 11025, "class")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile_name,rate_hz,variant", K1_M1_CASES)
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_cuda_resample_m1_bit_equal(cuda_device, profile_name, rate_hz, variant, dtype):
+    """K1 at m = 1 over the decode's polyphase tables (the export grid's
+    ``ef``): ``torch.equal`` to the twin, in one launch and in chunks."""
+    from noaa_apt_tpu_torch.graph.decode import _ingest_filter, _plan_resample_with_filter
+
+    p = PROFILES[profile_name]
+    l, _, coeff = _plan_resample_with_filter(Rate(rate_hz), Rate(p.work_rate), _ingest_filter(p, Rate(rate_hz)))
+    x = torch.from_numpy(_pcm(rate_hz)[:3001]).to(cuda_device).to(getattr(torch, dtype))
+    got = rs.expanded_filtered(x, l, coeff)
+    assert rs.polyphase_resample.last_variant == variant and got.shape[0] == 3001 * l - (len(coeff) - 1) // 2
+    p_c, s_c, bank, _, _ = rs.phase_tables(rs.resample_plan(3001, l, 1, coeff))
+    args = [torch.from_numpy(a).to(cuda_device) for a in (bank, p_c.astype(np.int32), s_c.astype(np.int32))]
+    n_out = got.shape[0]
+    assert torch.equal(got, rs.polyphase_resample_plain(x, *args, 1, n_out))
+    cuts = [0, 5, n_out // 2 + 3, n_out]
+    parts = [rs.polyphase_resample(x, *args, 1, b - a, k0=a) for a, b in zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat(parts), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate_hz,profile_name", [(11025, "standard"), (48000, "standard"), (24960, "standard")])
+def test_cuda_stream_matches_offline_decode(cuda_device, rate_hz, profile_name):
+    """The stream on the card: rows and sync positions equal to the card's
+    offline decode and to the CPU stream's, bit for bit; K1 and K2 once a
+    chunk, K3 never."""
+    from noaa_apt_tpu_torch import ops
+    from noaa_apt_tpu_torch.stream import StreamingDecoder
+
+    signal = _pcm_rows(rate_hz, 24).astype(np.float32)
+    offline = Decoder(PROFILES[profile_name]).decode(signal, Rate(rate_hz))
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        sd = StreamingDecoder(PROFILES[profile_name], Rate(rate_hz), device=dev)
+        out = [sd.push(signal[i : i + 9973]) for i in range(0, len(signal), 9973)]
+        out.append(sd.finish())
+        torch.cuda.synchronize()
+        rows[dev] = np.concatenate(out)
+        assert sd.sync_positions == offline.sync_positions
+        if dev == "cuda":
+            assert ops.launch_counts() == {"polyphase_resample": sd.chunks, "demod_fir_corr": sd.chunks,
+                                           "select_peaks": 0, "unpack_sealed": 0}
+    np.testing.assert_array_equal(rows["cuda"], offline.image_np())
+    np.testing.assert_array_equal(rows["cuda"], rows["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate_hz", [48000, 24960])
+def test_cuda_decode_with_steps_matches_offline(cuda_device, tmp_path, rate_hz):
+    """The step-exporting decode on the card: the offline decode's signal
+    bit for bit, K1 twice (work rate, then 4160 Hz), K2 and K3 once."""
+    from noaa_apt_tpu_torch import ops
+    from noaa_apt_tpu_torch.graph.debug import decode_with_steps
+    from noaa_apt_tpu_torch.io.context import Context
+
+    signal = _pcm_rows(rate_hz, 14)
+    offline = Decoder(PROFILES["standard"]).decode(signal, Rate(rate_hz))
+    ops.reset_launch_counts()
+    flat, positions = decode_with_steps(Context.decode(export_wav=True, output_dir=tmp_path),
+                                        PROFILES["standard"], signal, Rate(rate_hz))
+    assert ops.launch_counts() == {"polyphase_resample": 2, "demod_fir_corr": 1, "select_peaks": 1,
+                                   "unpack_sealed": 0}
+    assert positions == offline.sync_positions
+    np.testing.assert_array_equal(flat, offline.signal())
+    assert len(list(tmp_path.glob("*.wav"))) == 10

@@ -46,6 +46,7 @@ def test_port_never_loads_jax_or_the_jax_package():
             "noaa_apt_tpu_torch.post.palette", "noaa_apt_tpu_torch.io.misc",
             "noaa_apt_tpu_torch.graph.debug", "noaa_apt_tpu_torch.graph.resample_tool",
             "noaa_apt_tpu_torch.ops.pack", "noaa_apt_tpu_torch.native", "noaa_apt_tpu_torch.serve",
+            "noaa_apt_tpu_torch.stream",
             *(f"noaa_apt_tpu_torch.geo.{m}" for m in ("geometry", "sgp4", "tle", "orbit",
                                                        "shapefile", "states", "map_overlay"))
             } <= set(mods)
@@ -70,7 +71,7 @@ def test_source_scan_finds_no_jax_imports():
     assert len(files) > 15
     assert {PORT / "geo" / "map_overlay.py", PORT / "geo" / "sgp4.py", PORT / "io" / "misc.py",
             PORT / "graph" / "debug.py", PORT / "graph" / "resample_tool.py", PORT / "ops" / "pack.py",
-            PORT / "native" / "__init__.py", PORT / "serve.py"} <= set(files)
+            PORT / "native" / "__init__.py", PORT / "serve.py", PORT / "stream.py"} <= set(files)
     offenders = [str(p.relative_to(ROOT)) for p in files if _IMPORT.search(p.read_text())]
     assert offenders == []
 
@@ -107,6 +108,21 @@ def test_entry_points_raise_without_cuda(tmp_path):
         cli.main([str(tmp_path / "any.wav"), "-o", str(tmp_path / "out.png")])
     assert not (tmp_path / "out.png").exists()
     assert Decoder(STANDARD, device="cpu").device == torch.device("cpu")
+    # The stream, the step export and a traced run refuse the same way.
+    from noaa_apt_tpu_torch.core.frequency import Rate
+    from noaa_apt_tpu_torch.graph.debug import decode_with_steps
+    from noaa_apt_tpu_torch.io.context import Context
+    from noaa_apt_tpu_torch.stream import StreamingDecoder
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingDecoder(STANDARD, Rate(11025))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode_with_steps(Context.decode(), STANDARD, np.zeros(10, np.float32), Rate(11025))
+    for flags in (["--stream"], ["--wav-steps"], ["--profile-trace", str(tmp_path / "tr")]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main([str(tmp_path / "any.wav"), "-o", str(tmp_path / "out.png"), *flags])
+    assert not (tmp_path / "tr").exists() and not (tmp_path / "out.png").exists()
+    assert StreamingDecoder(STANDARD, Rate(11025), device="cpu").device == torch.device("cpu")
 
 
 def test_wrappers_take_the_plain_twin_only_for_cpu_tensors():

@@ -114,15 +114,36 @@ def test_resample_tool_errors_match_jax(tmp_path):
     assert not (tmp_path / "p.wav").exists()
 
 
-def test_resample_tool_refuses_unported_export_and_missing_cuda(tmp_path):
-    """``--export-resample-filtered`` waits for the step-export slice;
-    without CUDA the tool raises unless asked for the CPU."""
-    _seeded_wav(tmp_path / "in.wav", 12480, seconds=0.5)
-    with pytest.raises(err.InternalError, match="not ported yet"):
-        resample_tool.resample(Context.resample(export_resample_filtered=True), cfg.Settings(),
-                               tmp_path / "in.wav", tmp_path / "out.wav", 6240, device="cpu")
+def test_resample_tool_refuses_unported_export_and_missing_cuda(tmp_path, monkeypatch):
+    """``--export-resample-filtered`` (once refused here) with ``--wav-steps``
+    against the JAX tool at 11025 -> 48000 (l 640, m 147): the output WAV on
+    the export grid within 1 LSB, the same step WAVs, the expanded signal
+    (640 samples a sample) within 1e-5 of its peak; without CUDA the tool
+    raises unless asked for the CPU."""
+    _seeded_wav(tmp_path / "in.wav", 11025, seconds=0.2)
+    for name in ("jax", "port"):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        if name == "jax":
+            jtool.resample(JContext.resample(export_wav=True, export_resample_filtered=True),
+                           jcfg.Settings(), tmp_path / "in.wav", "out.wav", 48000)
+        else:
+            resample_tool.resample(Context.resample(export_wav=True, export_resample_filtered=True),
+                                   cfg.Settings(), tmp_path / "in.wav", "out.wav", 48000, device="cpu")
+    names = sorted(p.name for p in (tmp_path / "port").glob("*.wav"))
+    assert names == sorted(p.name for p in (tmp_path / "jax").glob("*.wav")) == [
+        "00_input.wav", "01_resample_filter.wav", "02_resample_filtered.wav", "03_resample_result.wav",
+        "out.wav"]
+    got, spec = wav.load_wav(tmp_path / "port" / "out.wav", raw_int16=True)
+    want, jspec = jwav.load_wav(tmp_path / "jax" / "out.wav", raw_int16=True)
+    assert astuple(spec) == astuple(jspec) and got.shape == want.shape
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    ef, ef_spec = wav.load_wav(tmp_path / "port" / "02_resample_filtered.wav")
+    jef, jef_spec = jwav.load_wav(tmp_path / "jax" / "02_resample_filtered.wav")
+    assert ef_spec.sample_rate == jef_spec.sample_rate == 11025 * 640 and ef.shape == jef.shape
+    assert float(np.abs(ef - jef).max()) <= 1e-5 * float(np.abs(jef).max())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resample_tool.resample(Context.resample(), cfg.Settings(), tmp_path / "in.wav",
-                                   tmp_path / "out.wav", 6240)
-    assert not (tmp_path / "out.wav").exists()
+                                   tmp_path / "gone.wav", 6240)
+    assert not (tmp_path / "gone.wav").exists()
