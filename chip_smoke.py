@@ -136,7 +136,23 @@ Phases, one JSON line each (``{"phase": ...}``):
    haloed windows as the stream made them, ``torch.equal`` to their
    twins; the first chunk's K2 runs on a view that starts past its
    buffer's first sample, and is also held to its twin on the whole
-   buffer.
+   buffer;
+16. ``distributed`` — ``parallel.ShardedDecoder`` over ``["cuda:0"] * n``
+   for n = 2, 4, 8 (and over every card where there are several) on the
+   three 10-minute passes: the percent u8 and sync list byte-equal to
+   ``Decoder.decode_render_input``'s and the no-sync rows ``torch.equal``
+   to ``Decoder.decode``'s, K1 = K2 = n and K3 = 1 a decode (counts set
+   to 0 just before, read just after), every shard's K1 and K2 launch held
+   to its twin (``twin_checks``), stage ms and wall beside the one-device
+   decode's; ``distributed_cli``: the CLI with ``--distributed 2``,
+   ``--no-sync`` and ``--raw-out`` on the 48 kHz pass, each PNG (and the
+   raw signal) equal to the one-device run's; ``distributed_multiprocess``:
+   two processes of this script (``--dist-worker``) on the one card in a
+   gloo process group run the CLI's ``--multihost`` over the ``fleet``
+   directory (shares disjoint and complete, each PNG equal to the
+   one-process fleet's, each process's launches those of its share), then
+   one global batch through ``batch_decode`` (both processes get both
+   rows, equal to the one-device decode).
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -1297,17 +1313,17 @@ def profile_trace_phase(torch, tmp: Path, wav48: Path, spr: int) -> dict:
 class Recorder:
     """Stands in for a kernel's wrapper during a main-path run: passes
     every call through to ``fn`` and keeps the arguments and result of
-    the first two calls, of every 32nd and of the last, for
+    the first two calls, of every ``every``-th and of the last, for
     :func:`twin_checks`.  The wrapper still counts its own launches, so
     the stand-in moves no count."""
 
-    def __init__(self, fn):
-        self.fn, self.calls, self.kept, self.last = fn, 0, {}, None
+    def __init__(self, fn, every: int = 32):
+        self.fn, self.every, self.calls, self.kept, self.last = fn, every, 0, {}, None
 
     def __call__(self, *args, **kw):
         out = self.fn(*args, **kw)
         self.last = (self.calls, args, kw, out)
-        if self.calls < 2 or self.calls % 32 == 0:
+        if self.calls < 2 or self.calls % self.every == 0:
             self.kept[self.calls] = (args, kw, out)
         self.calls += 1
         return out
@@ -1533,7 +1549,7 @@ def stream_phase(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr: i
     import numpy as np
 
     from noaa_apt_tpu_torch import cli, ops
-    from noaa_apt_tpu_torch import stream as stream_mod
+    from noaa_apt_tpu_torch.graph import window
     from noaa_apt_tpu_torch.io import wav
 
     offline = {}
@@ -1552,11 +1568,11 @@ def stream_phase(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr: i
         stdin, thread = sys.stdin, None
         if src == "-":
             sys.stdin, thread = stdin_pipe(pcm)
-        k1 = Recorder(stream_mod.polyphase_resample)
-        k2 = Recorder(stream_mod.demod_fir_corr)
+        k1 = Recorder(window.polyphase_resample)
+        k2 = Recorder(window.demod_fir_corr)
         try:
-            with mock.patch.object(stream_mod, "polyphase_resample", k1), \
-                    mock.patch.object(stream_mod, "demod_fir_corr", k2):
+            with mock.patch.object(window, "polyphase_resample", k1), \
+                    mock.patch.object(window, "demod_fir_corr", k2):
                 ops.reset_launch_counts()
                 rc = cli.main([src, "--stream", "-o", str(out), "-q", *flags], report=report)
                 torch.cuda.synchronize()
@@ -1590,9 +1606,244 @@ def stream_phase(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr: i
     return launches
 
 
+SHARD_COUNTS = (2, 4, 8)
+DIST_ENV = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID",
+            "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+DIST_WORKER_TIMEOUT_S = 300
+BATCH_SHIFT = 4800  # the global batch's second row starts 0.1 s into the 48 kHz pass
+
+
+def sharded_decodes(torch, wav48: Path, wav11: Path, wav25: Path) -> dict:
+    """``ShardedDecoder`` over ``["cuda:0"] * n`` for each of
+    ``SHARD_COUNTS`` (and over every card where there are several) on the
+    three 10-minute passes: the percent u8 and sync list byte-equal to
+    ``Decoder.decode_render_input``'s, the no-sync rows ``torch.equal`` to
+    ``Decoder.decode``'s, K1 = K2 = n and K3 = 1 a decode (counts set to 0
+    just before the recorded decode, read just after), every shard's K1 and
+    K2 launch held to its twin.  One line a mesh and pass: stage ms and
+    wall beside the one-device decode's.  Returns the launches of each."""
+    from unittest import mock
+
+    import numpy as np
+
+    from noaa_apt_tpu_torch import ops
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph import window
+    from noaa_apt_tpu_torch.graph.decode import Decoder
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.parallel import Mesh, ShardedDecoder
+
+    meshes = [(f"cuda:0 x {n}", ["cuda:0"] * n) for n in SHARD_COUNTS]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"every card ({torch.cuda.device_count()})",
+                       [f"cuda:{i}" for i in range(torch.cuda.device_count())]))
+
+    def timed(dec, signal, rate, reps: int = 3) -> tuple[float, dict]:
+        """Median wall ms of ``reps`` warm renders, and the last one's stages."""
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            dec.decode_render_input(signal, len(signal), rate)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls), dict(dec.last_stage_ms)
+
+    out = {}
+    for path, rate_hz in ((wav48, 48000), (wav11, 11025), (wav25, 24960)):
+        signal, rate = wav.load_device_ready(path)
+        signal = np.array(signal)  # in RAM once, as both decoders read it
+        single = Decoder(STANDARD)
+        u8_1, sync_1 = single.decode_render_input(signal, len(signal), rate)
+        rows_1 = single.decode(signal, rate, sync=False)
+        single_wall, single_ms = timed(single, signal, rate)
+        for label, devices in meshes:
+            n = len(devices)
+            sdec = ShardedDecoder(STANDARD, Mesh(devices, ("seq",)))
+            sdec.decode_render_input(signal, len(signal), rate)  # every device's tables
+            k1, k2 = Recorder(window.polyphase_resample, every=1), Recorder(window.demod_fir_corr, every=1)
+            with mock.patch.object(window, "polyphase_resample", k1), \
+                    mock.patch.object(window, "demod_fir_corr", k2):
+                ops.reset_launch_counts()
+                u8_s, sync_s = sdec.decode_render_input(signal, len(signal), rate)
+                torch.cuda.synchronize()
+                got = ops.launch_counts()
+            expect = {"polyphase_resample": n, "demod_fir_corr": n, "select_peaks": 1, "unpack_sealed": 0}
+            if got != expect:
+                raise AssertionError(f"sharded {rate_hz} Hz on {label}: launches {got}, expected {expect}")
+            if sync_s != sync_1 or not np.array_equal(u8_s, u8_1):
+                raise AssertionError(f"sharded {rate_hz} Hz on {label}: the render differs from one device's")
+            ops.reset_launch_counts()
+            rows_s = sdec.decode(signal, rate, sync=False)
+            torch.cuda.synchronize()
+            no_sync = ops.launch_counts()
+            if no_sync != {**expect, "select_peaks": 0} or not torch.equal(rows_s.image, rows_1.image):
+                raise AssertionError(f"sharded {rate_hz} Hz on {label}, no sync: launches {no_sync} or rows differ")
+            twins = twin_checks(torch, f"sharded {rate_hz} Hz {label}", k1, k2)
+            wall, stage_ms = timed(sdec, signal, rate)
+            plan = sdec.plan(len(signal), rate)
+            g = plan.geom
+            emit("distributed", rate=rate_hz, mesh=label, shards=n, launches=got, no_sync_launches=no_sync,
+                 w=g.w, ci=g.ci, l_in=g.l_in, r_in=g.r_in, n_pad=plan.n_pad, rows=rows_s.n_rows,
+                 wall_ms=wall, stage_ms=stage_ms, device_ms=sum(stage_ms.values()),
+                 single_wall_ms=single_wall, single_stage_ms=single_ms,
+                 single_device_ms=sum(single_ms.values()), u8_byte_equal=True, sync_equal=True,
+                 no_sync_rows_equal=True, launches_held_to_twin={k: len(v) for k, v in twins.items()})
+            out[f"{rate_hz} {label}"] = got
+    return out
+
+
+def distributed_cli_runs(torch, tmp: Path, wav48: Path, spr: int) -> dict:
+    """The CLI with ``--distributed 2`` on the 48 kHz pass, fused, with
+    ``--no-sync`` and with ``--raw-out``: each PNG byte-equal to the
+    one-device run's (``main_path_runs``), the raw signal equal to its.
+    On one card ``--distributed 2`` takes the one card (the first
+    ``min(N, cards)``, as ``jax.devices()[:N]``)."""
+    import numpy as np
+
+    n = min(2, torch.cuda.device_count())
+    out = {}
+    for name, flags in (("98_percent", ()), ("no_sync", ("--no-sync",)),
+                        ("raw_out", ("--raw-out", str(tmp / "raw_distributed.npy")))):
+        expect = {"polyphase_resample": n, "demod_fir_corr": n,
+                  "select_peaks": 0 if name == "no_sync" else 1, "unpack_sealed": 0}
+        rep = main_path_phase(torch, wav48, tmp / f"distributed_{name}_48000.png", 48000, spr, "block",
+                              ("-q", "--distributed", "2", *flags), expect=expect,
+                              label=f"--distributed 2 {name}", phase="distributed_cli")
+        if (tmp / f"distributed_{name}_48000.png").read_bytes() != (tmp / f"{name}_48000.png").read_bytes():
+            raise AssertionError(f"--distributed 2 {name}: the PNG differs from the one-device run's")
+        if "gather" not in rep["stage_ms"]:
+            raise AssertionError(f"--distributed 2 {name} did not take the sharded decoder: {rep['stage_ms']}")
+        out[f"--distributed 2 {name}"] = rep["launches"]
+    if not np.array_equal(np.load(tmp / "raw_distributed.npy"), np.load(tmp / "raw.npy")):
+        raise AssertionError("--distributed 2 --raw-out: the raw signal differs from the one-device run's")
+    emit("distributed_cli_vs_single", shards=n, png_byte_equal=True, raw_equal=True)
+    return out
+
+
+def dist_worker(tmp: Path, wav48: Path) -> int:
+    """One process of :func:`multiprocess_phase` (``chip_smoke.py
+    --dist-worker TMP WAV48``, coordinated by ``JAX_COORDINATOR_ADDRESS``,
+    ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``): the CLI's ``--multihost``
+    over the fleet directory, its launches counted, then one global batch
+    of two 48 kHz rows (this process's: the pass from ``pid * BATCH_SHIFT``
+    on) through ``batch_decode``, every result held to the one-device
+    decode.  Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from noaa_apt_tpu_torch import cli, ops
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph.decode import Decoder
+    from noaa_apt_tpu_torch.io import wav
+    from noaa_apt_tpu_torch.parallel import batch_decode, global_batch, topology_mesh
+    from noaa_apt_tpu_torch.parallel.dist import rank, world_size
+
+    pid = int(os.environ["JAX_PROCESS_ID"])
+    report: dict = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main([str(tmp / "fleet_in"), "-o", str(tmp / f"multihost_{pid}"), "-q", "--multihost"],
+                  report=report)
+    torch.cuda.synchronize()
+    fleet_wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    fleet = report["fleet"]
+    signal, rate = wav.load_device_ready(wav48)
+    signal = np.array(signal)
+    n = len(signal) - BATCH_SHIFT
+    rows = [signal[p * BATCH_SHIFT : p * BATCH_SHIFT + n] for p in range(2)]
+    mesh = topology_mesh()
+    dec = Decoder(STANDARD)
+    t0 = time.perf_counter()
+    results = batch_decode(dec, global_batch(mesh, np.stack([rows[pid]])), rate, mesh, axis="data")
+    torch.cuda.synchronize()
+    batch_wall = time.perf_counter() - t0
+    singles = [dec.decode(x, rate) for x in rows]
+    equal = len(results) == 2 and all(r.sync_positions == s.sync_positions and torch.equal(r.image, s.image)
+                                      for r, s in zip(results, singles))
+    print(json.dumps({"pid": pid, "rank": rank(), "world": world_size(), "rc": rc,
+                      "ok": [r.input_path.name for r in fleet.ok],
+                      "failed": [r.input_path.name for r in fleet.failed], "launches": launches,
+                      "fleet_wall_s": fleet_wall, "mesh": mesh.shape, "batch_results": len(results),
+                      "batch_rows": [r.n_rows for r in results], "batch_equal_single": equal,
+                      "batch_wall_s": batch_wall}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def multiprocess_phase(torch, tmp: Path, wav48: Path) -> dict:
+    """Two port processes on the one card, joined in a gloo process group
+    (``JAX_COORDINATOR_ADDRESS`` on 127.0.0.1): the CLI's ``--multihost``
+    over the ``fleet`` phase's directory (shares disjoint and complete, each
+    PNG byte-equal to the one-process fleet's, each process's launches
+    those of its share), then a two-process global batch (both processes
+    get both results, equal to the one-device decode).  Returns each
+    process's fleet launches."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker", str(tmp), str(wav48)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env={**env, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                                   "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(pid)})
+             for pid in range(2)]
+    t0 = time.perf_counter()
+    results = []
+    try:
+        for p in procs:
+            out, errs = p.communicate(timeout=DIST_WORKER_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"dist worker exited {p.returncode}: {errs[-3000:]}")
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    names = sorted(p.name for p in (tmp / "fleet_in").glob("*.wav"))
+    shares = [sorted(r["ok"] + r["failed"]) for r in results]
+    if sorted(shares[0] + shares[1]) != names or set(shares[0]) & set(shares[1]):
+        raise AssertionError(f"multihost shares {shares} do not partition {names}")
+    out = {}
+    for r in results:
+        if (r["rank"], r["world"]) != (r["pid"], 2) or r["failed"] not in ([], ["truncated.wav"]):
+            raise AssertionError(f"multihost process {r['pid']}: {r}")
+        if r["rc"] != (1 if r["failed"] else 0):
+            raise AssertionError(f"multihost process {r['pid']} returned {r['rc']} with failures {r['failed']}")
+        k = len(r["ok"])
+        if r["launches"] != {"polyphase_resample": k, "demod_fir_corr": k, "select_peaks": k,
+                             "unpack_sealed": 0}:
+            raise AssertionError(f"multihost process {r['pid']}: launches {r['launches']} for {k} passes")
+        for name in r["ok"]:
+            png_name = name[: -len(".wav")] + ".png"
+            got = (tmp / f"multihost_{r['pid']}" / png_name).read_bytes()
+            if got != (tmp / "fleet_cli" / png_name).read_bytes():
+                raise AssertionError(f"multihost process {r['pid']}: {png_name} differs from the one-process fleet's")
+        if r["batch_results"] != 2 or not r["batch_equal_single"] or r["mesh"] != {"data": 2, "seq": 1}:
+            raise AssertionError(f"global batch in process {r['pid']}: {r}")
+        out[f"multihost process {r['pid']}"] = r["launches"]
+    emit("distributed_multiprocess", processes=2, backend="gloo", wall_s=wall, shares=shares,
+         pngs_equal_single_process=True, global_batch_equal_single=True, workers=results)
+    return out
+
+
+def distributed_phase(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr: int) -> dict:
+    """Phase 16: the sharded decodes, the ``--distributed`` CLI runs and
+    the two-process runs; returns every run's launches."""
+    return {**sharded_decodes(torch, wav48, wav11, wav25), **distributed_cli_runs(torch, tmp, wav48, spr),
+            **multiprocess_phase(torch, tmp, wav48)}
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 4 and sys.argv[1] == "--dist-worker":
+        return dist_worker(Path(sys.argv[2]), Path(sys.argv[3]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a GPU",
               file=sys.stderr)
@@ -1663,6 +1914,7 @@ def main() -> int:
         trace = profile_trace_phase(torch, tmp, wav48, spr)
         steps = steps_phase(torch, dev, tmp, spr)
         stream = stream_phase(torch, tmp, wav48, wav11, wav25, spr)
+        sharded = distributed_phase(torch, tmp, wav48, wav11, wav25, spr)
 
     sources = {
         "polyphase_resample": ("noaa_apt_tpu_torch/csrc/resample.cu", "noaa_apt_tpu/ops/resample.py:186"),
@@ -1682,6 +1934,7 @@ def main() -> int:
                  "fleet_launches": {"cli_device": fleet["device"][name], "host16c": fleet["host16c"][name]},
                  "steps_launches": {run: n[name] for run, n in steps["launches"].items()},
                  "stream_launches": {run: n[name] for run, n in stream.items()},
+                 "sharded_launches": {run: n[name] for run, n in sharded.items()},
                  "trace_events": trace.get(name)}
         if name == "polyphase_resample":
             entry["variant"] = r["variant"]

@@ -32,9 +32,18 @@ takes its fused path there and ignores the flag, so the two PNGs differ.  ``--st
 raw PCM (``--stream-rate``, ``--stream-format``) from stdin (``-``), a
 pipe or a file as it arrives (:class:`stream.StreamingDecoder`), with a
 preview every ``--stream-update`` rows.  ``--profile-trace DIR`` records
-a ``torch.profiler`` trace of the whole run.  The modes not ported yet
-(``--distributed``, ``--multihost`` in fleet mode, no input: the GUI)
-exit 1 with "not ported yet" and write no file.
+a ``torch.profiler`` trace of the whole run.  ``--distributed N`` (N > 1)
+sequence-shards a single-file decode over the first N cards
+(:class:`parallel.ShardedDecoder`; with ``--device cpu``, N CPU shards),
+byte-equal to the one-device decode (``noaa_apt_tpu/cli.py:455-539``): the
+fused path with device ingest, else ``ShardedDecoder.decode`` with
+``--ingest`` ignored.  ``--multihost`` in fleet mode starts the process
+group (:func:`parallel.init_distributed`) and decodes this process's share
+of the directory (:func:`parallel.fleet_shard`,
+``noaa_apt_tpu/cli.py:347-363``); every process writes
+``fleet_report.json`` to the same path, so the last one to finish wins, as
+in the JAX CLI.  The one mode not ported yet, no input (the GUI), exits 1
+with "not ported yet" and writes no file.
 
     python -m noaa_apt_tpu_torch in.wav -o out.png [-c telemetry] [-F] [-m yes -R auto] [--ingest host16c] [--device cpu]
     python -m noaa_apt_tpu_torch passes/ -o out_dir/ [--ingest host16c] [--fleet-png rgba] [--device cpu]
@@ -42,6 +51,9 @@ exit 1 with "not ported yet" and write no file.
     python -m noaa_apt_tpu_torch in.wav -o out.png --wav-steps [--export-resample-filtered]
     sdr_pipe | python -m noaa_apt_tpu_torch - --stream --stream-rate 11025 -o out.png [--stream-update 50]
     python -m noaa_apt_tpu_torch in.wav -o out.png --profile-trace traces/
+    python -m noaa_apt_tpu_torch in.wav -o out.png --distributed 4 [--device cpu]
+    JAX_COORDINATOR_ADDRESS=host:port JAX_NUM_PROCESSES=2 JAX_PROCESS_ID=0 \
+        python -m noaa_apt_tpu_torch passes/ -o out_dir/ --multihost
 """
 
 from __future__ import annotations
@@ -71,6 +83,8 @@ from .graph.process import finish_image, process
 from .io import config as cfg
 from .io import misc, png, wav
 from .io.context import Context
+from .parallel import Mesh, ShardedDecoder, fleet_shard, init_distributed
+from .parallel.dist import rank, world_size
 from .post import contrast as ct
 from .serve import decode_fleet
 from .stream import StreamingDecoder
@@ -140,7 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
         "first resample's outputs to the reference's export grid."))
     p.add_argument("--rotate-image", action="store_true", help="Deprecated. Use --rotate instead.")
     p.add_argument("--distributed", metavar="N_CHIPS", type=int, default=0,
-                   help="Sequence-shard the decode over N cards (not ported yet).")
+                   help="Sequence-shard the decode of one file over N cards (the first N; "
+                        "with --device cpu, N CPU shards), with a ring halo exchange.")
     p.add_argument("--ingest", choices=["device", "host", "host16", "host16c", "host8"],
                    default="device", help="Where the first resample runs: 'device' (default) uploads "
                                           "the raw recording; 'host' resamples on the host and uploads "
@@ -150,7 +165,11 @@ def build_parser() -> argparse.ArgumentParser:
         "Also save the raw decoded signal (one float per pixel at 4160 Hz) as .npy; feed it "
         "back as the input to re-process without decoding."))
     p.add_argument("--multihost", action="store_true",
-                   help="Fleet (directory) mode across hosts (not ported yet).")
+                   help="Fleet (directory) mode across processes or hosts: start the "
+                        "torch.distributed process group (gloo; the coordinator from "
+                        "JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID or "
+                        "torchrun's variables) and decode only this process's share of the "
+                        "recordings.")
     p.add_argument("--fleet-png", choices=["auto", "rgba"], default="auto", help=(
         "Fleet (directory) mode output format: 'auto' (default) writes single-channel "
         "grayscale PNGs when the image carries no colour information (the same pixels); "
@@ -179,14 +198,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> str | None:
-    """The first option of ``args`` that the port does not have yet.
-    Fleet and stream mode refuse ``--distributed`` themselves, as the JAX
-    CLI does (:func:`_fleet`, :func:`_stream_refusal`)."""
+    """The mode of ``args`` that the port does not have yet: the GUI."""
     if args.input_filename is None:
         return "the GUI (no input file)"
-    if args.distributed and not args.stream and not Path(args.input_filename).is_dir():
-        return "--distributed"
     return None
+
+
+def _sharded_decoder(profile, n: int, device) -> ShardedDecoder:
+    """``--distributed n``'s decoder: a mesh of the first ``n`` cards
+    (fewer where the machine has fewer, as ``jax.devices()[:n]``), or of
+    ``n`` CPU shards (``noaa_apt_tpu/cli.py:478-486``)."""
+    if device.type == "cuda":
+        devices = [f"cuda:{i}" for i in range(min(n, torch.cuda.device_count()))]
+    else:
+        devices = [device] * n
+    return ShardedDecoder(profile, Mesh(devices, ("seq",)))
 
 
 def _stream_refusal(args) -> str | None:
@@ -288,8 +314,15 @@ def _fleet(args, settings, contrast: Contrast, rotate: Rotate, orbit: OrbitSetti
         print(f"No WAV files found in {args.input_filename}")
         return 1
     if args.multihost:
-        log.error("--multihost is not ported yet")
-        return 1
+        # Recordings are independent, so processes never exchange signal
+        # data: each decodes its deterministic share (parallel/dist.py).
+        init_distributed()
+        wavs = fleet_shard(wavs)
+        log.info("multihost fleet: process %d/%d decoding %d of the recordings", rank(), world_size(),
+                 len(wavs))
+        if not wavs:
+            print("No recordings assigned to this process")
+            return 0
 
     orbit_for = None
     if orbit is not None and (orbit.draw_map is not None or rotate == Rotate.ORBIT):
@@ -473,7 +506,13 @@ def _run(args, report: dict | None) -> int:
             signal, rate = wav.load_device_ready(args.input_filename)
             t.append(time.perf_counter())
             steps = settings.export_wav or settings.export_resample_filtered
-            decoder = None if steps else Decoder(settings.profile(), device=device, ingest=args.ingest)
+            distributed = args.distributed > 1
+            if steps:
+                decoder = None
+            elif distributed:
+                decoder = _sharded_decoder(settings.profile(), args.distributed, device)
+            else:
+                decoder = Decoder(settings.profile(), device=device, ingest=args.ingest)
             if steps:
                 # The step-exporting decode (noaa_apt_tpu/cli.py:521-529).
                 # --export-resample-filtered alone routes here too: it moves
@@ -488,7 +527,7 @@ def _run(args, report: dict | None) -> int:
                 rows = torch.from_numpy(flat.reshape(-1, PX_PER_ROW)).to(device)
                 img = process(DecodeResult(rows, rows.shape[0], sync_pos), contrast, rotate, color,
                               orbit, context)
-            elif args.sync and not args.raw_out:
+            elif args.sync and not args.raw_out and not (distributed and args.ingest != "device"):
                 # Fused path: the same levels table as noaa_apt_tpu/cli.py:489-496.
                 if contrast.kind == ContrastKind.PERCENT:
                     levels = ("percent", contrast.percent)
@@ -512,7 +551,7 @@ def _run(args, report: dict | None) -> int:
                 t.append(time.perf_counter())
                 context.status(0.5, "Generating image")
                 img = finish_image(gray, contrast.kind, rotate, color, orbit, context)
-            else:
+            else:  # the sharded decoder ignores --ingest, as in the JAX CLI
                 raw = decoder.decode(signal, rate, args.sync, context)
                 sync_pos = raw.sync_positions
                 if args.raw_out:

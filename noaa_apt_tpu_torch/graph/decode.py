@@ -310,17 +310,28 @@ class _DeviceChain:
 class _StageClock:
     """Per-stage times of one decode: CUDA events on the card (read once
     the decode has fetched its result, so no extra synchronisation),
-    the host clock on the CPU."""
+    the host clock on the CPU.
 
-    def __init__(self, device: torch.device):
+    ``others``: further cards the decode runs on.  Each mark then first
+    makes ``device``'s stream wait for theirs, so that a stage ends when
+    its work has ended on every card (the sharded decoder's)."""
+
+    def __init__(self, device: torch.device, others=()):
         self.cuda = device.type == "cuda"
+        self.device = device
+        self.others = [d for d in dict.fromkeys(others) if d != device] if self.cuda else []
         self.marks: list = []
         self.mark("start")
 
     def mark(self, name: str) -> None:
         if self.cuda:
+            home = torch.cuda.current_stream(self.device)
+            for d in self.others:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(d))
+                home.wait_event(done)
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
+            ev.record(home)
             self.marks.append((name, ev))
         else:
             self.marks.append((name, time.perf_counter()))
@@ -605,6 +616,21 @@ class Decoder:
         # and its host-clock milliseconds; and prepare_work's seconds.
         self.last_upload: dict | None = None
         self.last_ingest_s: float | None = None
+        self._peers: dict = {}
+
+    def on_device(self, device) -> "Decoder":
+        """A plain decoder of this one's profile and tables on ``device``
+        (this one where it is a plain decoder there): a member's decoder in
+        ``parallel.batch_decode``."""
+        dev = torch.device(device)
+        if dev == self.device and type(self) is Decoder:
+            return self
+        if dev not in self._peers:
+            self._peers[dev] = Decoder(self.profile, device=dev, tables=self._override)
+        return self._peers[dev]
+
+    def _clock(self) -> _StageClock:
+        return _StageClock(self.device)
 
     # -- tables --------------------------------------------------------
     def tables(self, input_rate: Rate) -> DecodeTables:
@@ -967,7 +993,7 @@ class Decoder:
         stage times the row gather, the statistics, their fetch and the
         wedge math.  ``fetch=False`` returns the :class:`PendingRender`
         (or :class:`PendingRenderTelemetry`) whose ``get()`` fetches."""
-        clock = _StageClock(self.device)
+        clock = self._clock()
         fronts = [self._front(signal, n_true, input_rate, clock)]
         pending = self._pending(fronts, clock, contrast_kind, pct)
         return pending.get() if fetch else pending
@@ -981,7 +1007,7 @@ class Decoder:
         must be padded to ``pad_bucket(work_true)``."""
         if payload.work_true < 10 * self.samples_per_work_row:
             raise err.InternalError(_TOO_SHORT)
-        clock = _StageClock(self.device)
+        clock = self._clock()
         pending = self._pending(self._work_fronts([payload], clock), clock, contrast_kind, pct)
         return pending.get() if fetch else pending
 
@@ -1036,7 +1062,7 @@ class Decoder:
             dtypes = {_dtype_name(payloads[b].data) for b in keep}
             if len(dtypes) != 1:
                 raise err.InternalError(f"decode_render_batch needs one payload dtype, got {sorted(dtypes)}")
-        clock = _StageClock(self.device)
+        clock = self._clock()
         fronts = self._work_fronts([payloads[b] for b in keep], clock)
         pending = self._batch_pending(fronts, clock, contrast_kind, pct, errors)
         return pending.get() if fetch else pending
@@ -1076,7 +1102,7 @@ class Decoder:
             dtype = None
         else:
             dtype = None if all(np.asarray(signals[b]).dtype == np.int16 for b in keep) else np.float32
-        clock = _StageClock(self.device)
+        clock = self._clock()
         fronts = self._fronts([signals[b] for b in keep], [n_trues[b] for b in keep], input_rate, clock,
                               dtype)
         pending = self._batch_pending(fronts, clock, contrast_kind, pct, errors)
@@ -1103,7 +1129,7 @@ class Decoder:
                 "packed (host16c) payloads decode via decode_render/"
                 "decode_render_batch, not decode()"
             )
-        clock = _StageClock(self.device)
+        clock = self._clock()
         if host_work is not None:
             if not isinstance(host_work, WorkPayload):
                 host_work = WorkPayload(data=np.asarray(host_work), work_true=int(host_work.shape[0]))
@@ -1112,6 +1138,15 @@ class Decoder:
             filt, corr, work_true = self._work_fronts([host_work], clock)[0]
         else:
             filt, corr, work_true = self._front(signal, len(signal), input_rate, clock, context)
+        result = self._rows(filt, corr, work_true, sync, clock, context)
+        self.last_stage_ms = clock.ms()
+        return result
+
+    def _rows(self, filt: torch.Tensor, corr: torch.Tensor, work_true: int, sync: bool,
+              clock: _StageClock, context=None) -> DecodeResult:
+        """:meth:`decode`'s tail: K3 and its guard with ``sync`` (else rows
+        at the nominal row length), then the row gather."""
+        spr = self.samples_per_work_row
         if sync:
             if context is not None:
                 context.status(0.5, "Syncing")
@@ -1127,7 +1162,6 @@ class Decoder:
         pos = torch.tensor(rows_pos, dtype=torch.int64, device=self.device)
         img = self._image(filt, pos)
         clock.mark("rows")
-        self.last_stage_ms = clock.ms()
         return DecodeResult(image=img, n_rows=len(rows_pos), sync_positions=sync_pos)
 
     # The renders below hold no decoder state: they run on the device

@@ -39,28 +39,8 @@ from .core.frequency import Rate
 from .core.profiles import DecodeProfile
 from .device import resolve_device
 from .graph.decode import DecodeTables
-from .ops import demod as dm
-from .ops.resample import polyphase_resample
-from .ops.stage import demod_fir_corr
-
-
-def _ceil_to(x: int, q: int) -> int:
-    return -(-x // q) * q
-
-
-def chunk_alignment(l: int) -> int:
-    """The granularity, in work samples, of a chunk's start and of its
-    halos: one polyphase period, ``l`` outputs (1 at l == 1).
-
-    K1 computes output ``k = i*l + c`` from the tap row of its class ``c``
-    and the inputs from ``s_c[c] + i*m`` on, summed in one fixed order, and
-    K2 sums each output's taps and template terms in one fixed order too;
-    neither result depends on where the launch starts.  A window that
-    starts on a whole period (work sample ``j*l``, input sample ``j*m``)
-    therefore sees every output's classes and inputs at the same offsets
-    as the offline launch, and gives its floats bit for bit.  (The JAX
-    package aligns to its TPU matmul blocks instead, ``out_alignment``.)"""
-    return max(1, l)
+from .graph.window import (HaloGeometry, WindowTables, ceil_to, chunk_alignment, window_resample,
+                           window_stage)
 
 
 class _GreedyState:
@@ -117,34 +97,16 @@ class StreamingDecoder:
         self.m_final = profile.work_rate // FINAL_RATE
 
         t = DecodeTables.design(profile, input_rate)
-        l, m = t.l, t.m
-        self.l, self.m = l, m
         self._work_len = t.work_len
-        align = chunk_alignment(l)
-        # Work chunk W: about chunk_rows rows, on whole polyphase periods.
-        w = _ceil_to(max(1, chunk_rows) * self.spr, align)
-        ci = w * m // l
-        self.w, self.ci = w, ci
         self.guard = t.template.shape[0]
-        taps = t.bank.shape[1]
-        l_ctx = _ceil_to(t.taps.shape[0] + 1, align)
-        g_ctx = _ceil_to(self.guard, align)
-        if l > 1:
-            l_in = l_ctx * m // l
-            r_in = g_ctx * m // l + int(t.s_c.max()) + taps + 1
-        else:
-            # causal_tables: output j reads x[j*m - K + 1 .. j*m] (K = taps).
-            l_in = l_ctx * m + taps - 1
-            r_in = g_ctx * m
-        self.l_ctx, self.g_ctx, self.l_in, self.r_in = l_ctx, g_ctx, l_in, r_in
-        self._ext_out = l_ctx + w + g_ctx
+        # Work chunk W: about chunk_rows rows, on whole polyphase periods.
+        g = HaloGeometry.design(t, ceil_to(max(1, chunk_rows) * self.spr, chunk_alignment(t.l)))
+        self.geom = g
+        self.l, self.m, self.w, self.ci = g.l, g.m, g.w, g.ci
+        self.l_ctx, self.g_ctx, self.l_in, self.r_in = g.l_ctx, g.g_ctx, g.l_in, g.r_in
         # Every table once per decoder, on its device: K1's table cache
         # keys on the bank tensor, so later chunks need no host work.
-        dev = self.device
-        self._bank, self._p_c, self._s_c = (torch.from_numpy(a).to(dev) for a in (t.bank, t.p_c, t.s_c))
-        self._taps = torch.from_numpy(t.taps).to(dev)
-        self._tmpl = torch.from_numpy(t.template).to(dev)
-        self._cosphi2, self._inv = t.cosphi2, dm.inv_sinphi(t.sinphi)
+        self._tabs = WindowTables.upload(t, self.device)
         self.chunk_bit_exact = True  # K1 and K2 are position-independent (chunk_alignment)
 
         # -- mutable stream state --
@@ -168,25 +130,21 @@ class StreamingDecoder:
         return self._k
 
     # -- internals -----------------------------------------------------
-    def _chunk(self, ext: np.ndarray, skip: int) -> np.ndarray:
-        """K1 and K2 over the haloed window ``ext`` -> ``[f_seg, corr]``
-        (``2*w`` floats, or ``w`` without sync) on the host.  The first
-        ``skip`` work samples of the window lie before global sample 0
-        (the first chunk's left halo) and do not exist offline: K2 runs
-        from global sample 0 on, so its own ``dem[0] = 0`` and zero
-        history are the offline graph's."""
+    def _chunk(self, ext: np.ndarray, k: int) -> np.ndarray:
+        """K1 and K2 over chunk ``k``'s haloed window ``ext`` -> ``[f_seg,
+        corr]`` (``2*w`` floats, or ``w`` without sync) on the host.  The
+        first work samples of the first chunk's window lie before global
+        sample 0 and do not exist offline: K2 runs from global sample 0 on
+        (``graph/window.window_stage``)."""
         cuda = self.device.type == "cuda"
         if cuda:
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
         else:
             h0 = time.perf_counter()
-        x = torch.from_numpy(ext).to(self.device)
-        y = polyphase_resample(x, self._bank, self._p_c, self._s_c, self.m, self._ext_out)
-        y, lo = y[skip:], self.l_ctx - skip
-        filt, corr = demod_fir_corr(y, self._taps, self._tmpl, self._cosphi2, self._inv)
-        w = self.w
-        seg = torch.cat([filt[lo : lo + w], corr[lo : lo + w]]) if self.sync else filt[lo : lo + w]
+        y = window_resample(torch.from_numpy(ext).to(self.device), self.geom, self._tabs)
+        filt, corr = window_stage(y, self.geom, k, self._tabs)
+        seg = torch.cat([filt, corr]) if self.sync else filt
         if cuda:
             t1.record()
         out = seg.cpu().numpy()
@@ -196,19 +154,15 @@ class StreamingDecoder:
     def _run_chunk(self, pad_to: int | None = None) -> None:
         """Process chunk ``self._k``; ``pad_to`` zero-pads a final partial
         window (finish), as the offline resample reads 0 past the end."""
-        k, ci, l_in, r_in = self._k, self.ci, self.l_in, self.r_in
-        a = k * ci - l_in  # absolute window start (may be < 0)
-        b = (k + 1) * ci + r_in
+        k, ci, l_in = self._k, self.ci, self.l_in
+        a, b = self.geom.window(k)  # absolute window (a may be < 0)
         ext = np.zeros(b - a, np.float32)
         lo = max(a, self._in_start)
         hi = min(b, self._n_in if pad_to is None else pad_to)
         if hi > lo:
             ext[lo - a : hi - a] = self._in_buf[lo - self._in_start : hi - self._in_start]
-        if self.l == 1 and a <= 0:
-            # causal_input's semantics: the reference's strict i > j guard
-            # drops x[0], and nothing comes before it.
-            ext[: 1 - a] = 0.0
-        out = self._chunk(ext, max(0, self.l_ctx - k * self.w))
+        self.geom.zero_before_start(ext, a)
+        out = self._chunk(ext, k)
         f_seg, corr = out[: self.w], out[self.w :]
         if self._f_buf.size == 0:
             self._f_start = k * self.w

@@ -640,3 +640,28 @@ def test_cuda_decode_with_steps_matches_offline(cuda_device, tmp_path, rate_hz):
     assert positions == offline.sync_positions
     np.testing.assert_array_equal(flat, offline.signal())
     assert len(list(tmp_path.glob("*.wav"))) == 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate_hz", [11025, 48000, 24960])
+def test_cuda_sharded_decode_matches_single(cuda_device, rate_hz):
+    """Four shards on the one card (``["cuda:0"] * 4``): sync list and
+    rows byte-equal to the card's one-device decode, the fused u8 render
+    too; K1 and K2 once a shard, K3 once a decode."""
+    from noaa_apt_tpu_torch import ops
+    from noaa_apt_tpu_torch.parallel import Mesh, ShardedDecoder
+
+    pcm = _pcm_rows(rate_hz, 24)
+    single = Decoder(PROFILES["standard"]).decode(pcm, Rate(rate_hz))
+    sdec = ShardedDecoder(PROFILES["standard"], Mesh(["cuda:0"] * 4, ("seq",)))
+    ops.reset_launch_counts()
+    sharded = sdec.decode(pcm, Rate(rate_hz))
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"polyphase_resample": 4, "demod_fir_corr": 4, "select_peaks": 1,
+                                   "unpack_sealed": 0}
+    assert sharded.sync_positions == single.sync_positions
+    assert torch.equal(sharded.image, single.image)
+    u8_1, sync_1 = Decoder(PROFILES["standard"]).decode_render_input(pcm, len(pcm), Rate(rate_hz))
+    u8_s, sync_s = sdec.decode_render_input(pcm, len(pcm), Rate(rate_hz))
+    assert sync_s == sync_1 and np.array_equal(u8_s, u8_1)
+    assert set(sdec.last_stage_ms) >= {"upload", "halo", "resample", "demod_fir_corr", "gather", "select"}

@@ -321,7 +321,7 @@ def test_cli_fleet_refusals_match_jax(fleet_dir, capsys, flags, name):
     assert not Path("port").exists()
 
 
-def test_cli_empty_directory_and_multihost(fleet_dir, tmp_path, capsys, caplog):
+def test_cli_empty_directory_and_multihost(fleet_dir, tmp_path, capsys, caplog, monkeypatch):
     empty = tmp_path / "empty"
     empty.mkdir()
     (empty / "notes.txt").write_text("no passes here")
@@ -330,9 +330,16 @@ def test_cli_empty_directory_and_multihost(fleet_dir, tmp_path, capsys, caplog):
     assert cli.main([str(empty), "-o", "port", "--device", "cpu", "-q"]) == 1
     out = capsys.readouterr().out.splitlines()
     assert out[-1] == jout[-1] == f"No WAV files found in {empty}"
+    # --multihost without a coordinator: one process, whose share is the
+    # whole directory, as in the JAX CLI (two passes fail: exit 1).
+    for name in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID",
+                 "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    assert jax_cli([str(fleet_dir), "-o", "jax", "-q", "--multihost"]) == 1
     assert cli.main([str(fleet_dir), "-o", "port", "--device", "cpu", "--multihost"]) == 1
-    assert "--multihost is not ported yet" in caplog.text
-    assert not Path("port").exists()
+    assert "not ported yet" not in caplog.text
+    assert "multihost fleet: process 0/1 decoding 5 of the recordings" in caplog.text
+    assert sorted(p.name for p in Path("port").glob("*.png")) == sorted(p.name for p in Path("jax").glob("*.png"))
 
 
 # The pinned Jan-2020 TLE of tests/test_torch_cli.py; the names carry each
