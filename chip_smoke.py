@@ -152,7 +152,24 @@ Phases, one JSON line each (``{"phase": ...}``):
    directory (shares disjoint and complete, each PNG equal to the
    one-process fleet's, each process's launches those of its share), then
    one global batch through ``batch_decode`` (both processes get both
-   rows, equal to the one-device decode).
+   rows, equal to the one-device decode);
+17. ``gui`` — the GUI's logic layer (``gui.work``) headless on the card
+   (in-memory widgets, inline ``idle_add``, ``GuiState(device=cuda)``),
+   the launch counters set to 0 just before each action and read just
+   after, no error in the info bar and each action's own final progress
+   text: Decode of the 48 kHz pass (K1, K2, K3 once, each launch held to
+   its twin by ``twin_checks``, the rows on the card); Process
+   98_percent and Save, pixels equal to the CLI's ``--raw-out`` run's
+   and within +-1 on 0.1% of the fused run's; Process minmax (no
+   launch); Process with the overlay, ``auto`` rotation and the pinned
+   TLE, equal to a CLI ``-m yes -R auto --raw-out`` run and within the
+   rule of ``map_path``'s; an auto-update burst (no launch, the last
+   knobs' image); Decode with "WAV steps" on the 60-s pass (K1 twice, K2
+   and K3 once, held to their twins, the flat signal the ``--raw-out``
+   run's); the Resample tool 48000 -> 11025 (K1 once, the CLI ``-r``
+   run's WAV); a timestamp round trip.  One line: each action's wall
+   seconds, launches, the differences and the card's name and power
+   limit.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -162,6 +179,7 @@ it; it imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -1387,14 +1405,15 @@ def twin_checks(torch, label: str, k1: Recorder | None = None, k2: Recorder | No
     return out
 
 
-def recorded_steps_run(torch, *a, **kw) -> dict:
-    """``main_path_phase(*a, **kw)`` with K1, K2 and K3 recorded where the
-    step decode (``graph/debug.py``) calls them, then :func:`twin_checks`
-    on every launch recorded: K1 at the work rate and the 1-tap NoFilter
-    K1 of the 4160 Hz step (at m = 1 where ``--wav-steps`` and
-    ``--export-resample-filtered`` write its full-rate signal), K2 and
-    K3.  The export grid's K1 (``expanded_filtered``) is not recorded
-    here: ``export_grid_case`` holds it.  Returns the run's report."""
+@contextlib.contextmanager
+def step_recorders():
+    """K1, K2 and K3 recorded (``Recorder``) where the step decode
+    (``graph/debug.py``) calls them, for :func:`twin_checks`: K1 at the
+    work rate and the 1-tap NoFilter K1 of the 4160 Hz step (at m = 1
+    where ``--wav-steps`` and ``--export-resample-filtered`` write its
+    full-rate signal), K2 and K3.  The export grid's K1
+    (``expanded_filtered``) is not recorded: ``export_grid_case`` holds
+    it.  Yields ``(k1, k2, k3)``."""
     from types import SimpleNamespace
     from unittest import mock
 
@@ -1405,6 +1424,14 @@ def recorded_steps_run(torch, *a, **kw) -> dict:
     k2, k3 = Recorder(debug.demod_fir_corr), Recorder(debug.select_peaks)
     with mock.patch.object(debug, "rs", rs), mock.patch.object(debug, "demod_fir_corr", k2), \
             mock.patch.object(debug, "select_peaks", k3):
+        yield k1, k2, k3
+
+
+def recorded_steps_run(torch, *a, **kw) -> dict:
+    """``main_path_phase(*a, **kw)`` under :func:`step_recorders`, then
+    :func:`twin_checks` on every launch recorded.  Returns the run's
+    report."""
+    with step_recorders() as (k1, k2, k3):
         report = main_path_phase(torch, *a, **kw)
     twin_checks(torch, f"{kw.get('label')} {Path(a[0]).name}", k1, k2, k3)
     return report
@@ -1839,6 +1866,243 @@ def distributed_phase(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, s
             **multiprocess_phase(torch, tmp, wav48)}
 
 
+NO_LAUNCHES = {k: 0 for k in ALL_ONCE}
+
+
+def u8_diff(got, want, what: str, exact: bool) -> dict:
+    """Max |difference| and differing pixels of two u8 images; raises
+    unless they are equal (``exact``) or within the port's rule, +-1 on
+    at most 0.1% of values."""
+    import numpy as np
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape}, expected {want.shape}")
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    out = {"max_abs": int(d.max(initial=0)), "pixels": int((d > 0).any(axis=-1).sum()),
+           "values": int((d > 0).sum())}
+    if out["max_abs"] > (0 if exact else 1) or out["values"] > 1e-3 * d.size:
+        raise AssertionError(f"{what}: {out} of {d.size} values")
+    return out
+
+
+def gui_phase(torch, dev, tmp: Path, wav48: Path, spr: int) -> dict:
+    """Phase 17: the GUI's logic layer (``noaa_apt_tpu_torch.gui.work``)
+    headless on the card: in-memory ``Widgets``, inline ``idle_add``,
+    ``GuiState(device=dev)`` (``cuda``), the launch counts set to 0 just before
+    each action and read just after; no action may end with an error in
+    the info bar, and each must end on its own progress text.  Decode
+    (K1, K2, K3 once, each launch held to its twin, the rows on the
+    card); Process 98_percent ``-R no`` and Save, the pixels equal to the
+    CLI's ``--raw-out`` run's (the same unfused path) and within the u8
+    rule of the default fused run's; Process minmax (no launch);
+    Process with the overlay, ``auto`` rotation and the pinned TLE, equal
+    to the CLI's ``-m yes -R auto --raw-out`` run's and within the rule of
+    ``map_path``'s; an auto-update burst (three knob changes while one
+    Process is in flight: two Process runs, no launch, the image of the
+    last knobs); Decode with "WAV steps" on the 60-s pass (K1 twice, K2,
+    K3 once, held to their twins; the flat signal the ``--raw-out``
+    run's); the Resample tool 48000 -> 11025 (K1 once, the CLI ``-r``
+    run's WAV); a timestamp write and read.  Returns each action's
+    launches."""
+    import threading
+    from datetime import datetime
+    from unittest import mock
+
+    import numpy as np
+
+    from noaa_apt_tpu_torch import ops
+    from noaa_apt_tpu_torch.graph import decode as gdecode
+    from noaa_apt_tpu_torch.gui import state as gstate
+    from noaa_apt_tpu_torch.gui import work
+    from noaa_apt_tpu_torch.io import config as cfg
+    from noaa_apt_tpu_torch.io import png, wav
+
+    w = gstate.Widgets()
+    state = gstate.GuiState(settings=cfg.build_settings(cfg.load_de_settings()), device=dev)
+    gstate.set_widgets(w)
+    gstate.set_state(state)
+    gstate.wire_auto_update(w, work.process_if_auto_update_enabled)  # as the Tk shell wires it
+    work._auto_update_pending = False
+    launches, walls = {}, {}
+
+    def settle(before: set) -> None:
+        """Join every thread started since ``before``: the action's worker
+        and the reruns an auto-update burst spawns from a finishing one."""
+        while True:
+            new = [t for t in threading.enumerate() if t not in before and t.is_alive()]
+            if not new:
+                return
+            for t in new:
+                t.join(timeout=600)
+                if t.is_alive():
+                    raise AssertionError(f"a GUI worker is still running after 600 s: {t.name}")
+
+    def act(name: str, fn, done: str, expect: dict) -> None:
+        before = set(threading.enumerate())
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fn()
+        settle(before)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = ops.launch_counts()
+        if w.info.revealed and w.info.kind == "error":
+            raise AssertionError(f"GUI {name}: error in the info bar: {w.info.text}")
+        if w.progress.description != done:
+            raise AssertionError(f"GUI {name}: progress ends on {w.progress.description!r}, not {done!r}")
+        if launches[name] != expect:
+            raise AssertionError(f"GUI {name}: launches {launches[name]}, expected {expect}")
+
+    # Decode, with every kernel launch recorded for twin_checks.
+    w.dec_input_chooser.set(str(wav48))
+    k1, k2, k3 = (Recorder(getattr(gdecode, n)) for n in ("polyphase_resample", "demod_fir_corr", "select_peaks"))
+    with mock.patch.object(gdecode, "polyphase_resample", k1), mock.patch.object(gdecode, "demod_fir_corr", k2), \
+            mock.patch.object(gdecode, "select_peaks", k3):
+        act("decode", work.decode, "Decoded", ALL_ONCE)
+    result = state.decoded_signal
+    if result.image.device.type != dev.type or state.decoder.device.type != dev.type:
+        raise AssertionError(f"GUI decode: rows on {result.image.device}, decoder on {state.decoder.device}")
+    rows = int(result.image.shape[0])
+    if abs(rows - PASS_ROWS) > 2:
+        raise AssertionError(f"GUI decode: {rows} rows, synthesized {PASS_ROWS}")
+    twin_checks(torch, "gui decode", k1, k2, k3)
+
+    # Process 98_percent, no rotation, and Save: the CLI's pixels.
+    w.p_contrast_combo.set("98_percent")
+    w.p_rotate_combo.set("no")
+    act("process_98_percent", work.process, "Processed", NO_LAUNCHES)
+    w.sav_output_entry.set(str(tmp / "gui_98_percent.png"))
+    act("save", work.save, "Saved", NO_LAUNCHES)
+    saved = png.read_png(tmp / "gui_98_percent.png")
+    diffs = {"save_vs_processed": u8_diff(saved, state.processed_image, "GUI save", True),
+             "98_percent_vs_cli_raw_out": u8_diff(saved, png.read_png(tmp / "raw_out_48000.png"),
+                                                  "GUI 98_percent against the CLI's --raw-out run", True),
+             "98_percent_vs_cli_fused": u8_diff(saved, png.read_png(tmp / "98_percent_48000.png"),
+                                                "GUI 98_percent against the CLI's fused run", False)}
+
+    # The host preview that every Process ends with (gui/misc.update_image).
+    from noaa_apt_tpu_torch.gui import misc as gmisc
+
+    t0 = time.perf_counter()
+    preview = gmisc.scale_preview(saved, w.image.viewport_size(), False)
+    walls["preview_only"] = time.perf_counter() - t0
+    if not np.array_equal(preview, w.image.preview):
+        raise AssertionError("GUI preview: scale_preview differs from the preview the Process set")
+
+    # Process again with minmax: the cached rows, no kernel.
+    w.p_contrast_combo.set("minmax")
+    act("process_minmax", work.process, "Processed", NO_LAUNCHES)
+    minmax = state.processed_image
+
+    # The overlay with auto rotation and the pinned TLE.
+    tle = tmp / "gui_tle.txt"
+    tle.write_text(MAP_TLE)
+    local = datetime.fromisoformat(MAP_START).astimezone()
+    for name, value in (("p_contrast_combo", "98_percent"), ("p_rotate_combo", "auto"),
+                        ("p_overlay_check", True), ("p_satellite_combo", "noaa_19"),
+                        ("p_custom_tle_check", True), ("p_custom_tle_chooser", str(tle)),
+                        ("p_ref_time_combo", "start"), ("p_calendar", (local.year, local.month, local.day)),
+                        ("p_hs_spinner", local.hour), ("p_min_spinner", local.minute),
+                        ("p_sec_spinner", local.second)):
+        getattr(w, name).set(value)
+    act("process_map_auto", work.process, "Processed", NO_LAUNCHES)
+    gui_map = state.processed_image
+    map_flags = ("-q", "-m", "yes", "-R", "auto", "-s", "noaa_19", "-T", str(tle), "-t", MAP_START,
+                 "--raw-out", str(tmp / "gui_map.npy"))
+    main_path_phase(torch, wav48, tmp / "gui_cli_map.png", 48000, spr, "block", map_flags,
+                    label="map_auto_rotate --raw-out", phase="gui_cli")
+    diffs["map_vs_cli_raw_out"] = u8_diff(gui_map, png.read_png(tmp / "gui_cli_map.png"),
+                                          "GUI map against the CLI's -m yes -R auto --raw-out run", True)
+    diffs["map_vs_cli_fused"] = u8_diff(gui_map, png.read_png(tmp / "map.png"),
+                                        "GUI map against map_path's fused run", False)
+    ink_a, ink_b = ink(gui_map, 539), ink(gui_map, 1579)
+    if min(ink_a, ink_b) <= 1000:
+        raise AssertionError(f"GUI map: {ink_a} and {ink_b} ink pixels in the channel windows")
+
+    # Auto-update burst: three knob changes while the first Process runs.
+    w.p_overlay_check.set(False)
+    w.p_rotate_combo.set("no")
+    w.p_auto_update_check.set(True)
+    runs = []
+    real_process = work.process
+
+    def counted():
+        runs.append(1)
+        return real_process()
+
+    def burst():
+        w.p_contrast_combo.set("histogram")
+        w.p_contrast_combo.set("minmax")
+        w.p_contrast_combo.set("98_percent")
+
+    with mock.patch.object(work, "process", counted):
+        act("auto_update_burst", burst, "Processed", NO_LAUNCHES)
+    w.p_auto_update_check.set(False)
+    if work._auto_update_pending or not 1 <= len(runs) <= 3:
+        raise AssertionError(f"GUI burst: {len(runs)} Process runs, pending {work._auto_update_pending}")
+    if not np.array_equal(state.processed_image, saved):
+        raise AssertionError("GUI burst: the last image is not the 98_percent image of its last knobs")
+    if np.array_equal(minmax, saved):
+        raise AssertionError("GUI: the minmax image equals the 98_percent one")
+
+    # Decode with "WAV steps" on the 60-s pass, every launch recorded.
+    steps_wav = tmp / "pass_48000_60s.wav"
+    out = tmp / "gui_steps"
+    out.mkdir()
+    w.dec_input_chooser.set(str(steps_wav))
+    w.dec_wav_steps_check.set(True)
+    cwd = Path.cwd()
+    os.chdir(out)  # the step WAVs go to the working directory, as in the reference
+    try:
+        with step_recorders() as (s1, s2, s3):
+            act("decode_wav_steps", work.decode, "Decoded", STEPS_LAUNCHES)
+    finally:
+        os.chdir(cwd)
+    w.dec_wav_steps_check.set(False)
+    flat, raw = state.decoded_signal, np.load(tmp / "steps_off_48000.npy")
+    if flat.shape != raw.shape or not np.array_equal(flat, raw):
+        raise AssertionError("GUI WAV steps: the flat signal differs from the --raw-out run's")
+    diffs["wav_steps_flat_vs_raw_out"] = {"max_abs": float(np.abs(flat - raw).max(initial=0.0))}
+    step_files = sorted(p.name for p in out.glob("*.wav"))
+    if step_files != sorted(p.name for p in (tmp / "steps_48000_wav_steps").glob("*.wav")):
+        raise AssertionError(f"GUI WAV steps wrote {step_files}")
+    twin_checks(torch, "gui decode_wav_steps", s1, s2, s3)
+
+    # The Resample tool, 48000 -> 11025: the CLI -r run's WAV.
+    w.res_input_chooser.set(str(wav48))
+    w.res_output_entry.set(str(tmp / "gui_resampled.wav"))
+    w.res_rate_spinner.set(11025)
+    act("resample", work.resample, "Finished", {**NO_LAUNCHES, "polyphase_resample": 1})
+    got, spec = wav.load_wav(tmp / "gui_resampled.wav")
+    want, want_spec = wav.load_wav(tmp / "resampled_48000_11025.wav")
+    if spec != want_spec or not np.array_equal(got, want):
+        raise AssertionError("GUI resample: the WAV differs from the CLI's -r 11025 run's")
+    diffs["resample_vs_cli"] = {"max_abs": float(np.abs(got - want).max(initial=0.0))}
+
+    # Timestamp write and read.
+    stamp = tmp / "gui_stamp.wav"
+    stamp.write_bytes(b"RIFF")
+    w.ts_write_chooser.set(str(stamp))
+    w.ts_calendar.set((2020, 1, 26))
+    w.ts_hs_spinner.set(1)
+    w.ts_min_spinner.set(33)
+    w.ts_sec_spinner.set(20)
+    t0 = time.perf_counter()
+    work.write_timestamp()
+    w.ts_calendar.set((1999, 1, 1))
+    w.ts_read_chooser.set(str(stamp))
+    work.read_timestamp()
+    walls["timestamp_round_trip"] = time.perf_counter() - t0
+    if w.info.text != "Loaded timestamp from file" or w.ts_calendar.get() != (2020, 1, 26) or \
+            (w.ts_hs_spinner.get(), w.ts_min_spinner.get(), w.ts_sec_spinner.get()) != (1, 33, 20):
+        raise AssertionError(f"GUI timestamp round trip: {w.info.text}, {w.ts_calendar.get()}")
+
+    emit("gui", device=str(state.device), rows=rows, wall_s=walls, launches=launches,
+         process_runs_in_burst=len(runs), diffs=diffs, ink_a=ink_a, ink_b=ink_b,
+         step_files=len(step_files), nvidia_smi=nvidia_smi())
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1915,6 +2179,7 @@ def main() -> int:
         steps = steps_phase(torch, dev, tmp, spr)
         stream = stream_phase(torch, tmp, wav48, wav11, wav25, spr)
         sharded = distributed_phase(torch, tmp, wav48, wav11, wav25, spr)
+        gui = gui_phase(torch, dev, tmp, wav48, spr)
 
     sources = {
         "polyphase_resample": ("noaa_apt_tpu_torch/csrc/resample.cu", "noaa_apt_tpu/ops/resample.py:186"),
@@ -1935,6 +2200,7 @@ def main() -> int:
                  "steps_launches": {run: n[name] for run, n in steps["launches"].items()},
                  "stream_launches": {run: n[name] for run, n in stream.items()},
                  "sharded_launches": {run: n[name] for run, n in sharded.items()},
+                 "gui_launches": {action: n[name] for action, n in gui.items()},
                  "trace_events": trace.get(name)}
         if name == "polyphase_resample":
             entry["variant"] = r["variant"]

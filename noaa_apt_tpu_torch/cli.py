@@ -42,9 +42,12 @@ group (:func:`parallel.init_distributed`) and decodes this process's share
 of the directory (:func:`parallel.fleet_shard`,
 ``noaa_apt_tpu/cli.py:347-363``); every process writes
 ``fleet_report.json`` to the same path, so the last one to finish wins, as
-in the JAX CLI.  The one mode not ported yet, no input (the GUI), exits 1
-with "not ported yet" and writes no file.
+in the JAX CLI.  No input opens the GUI (:func:`gui.main`,
+``noaa_apt_tpu/cli.py:166-171``) on the card, or on the CPU with
+``--device cpu``; ``-v`` prints the version and, where the settings file
+asks for it, the update check's message (``noaa_apt_tpu/cli.py:149-159``).
 
+    python -m noaa_apt_tpu_torch [--device cpu]
     python -m noaa_apt_tpu_torch in.wav -o out.png [-c telemetry] [-F] [-m yes -R auto] [--ingest host16c] [--device cpu]
     python -m noaa_apt_tpu_torch passes/ -o out_dir/ [--ingest host16c] [--fleet-png rgba] [--device cpu]
     python -m noaa_apt_tpu_torch in.wav -r 11025 -o out.wav [--device cpu]
@@ -195,13 +198,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help=(
         "Where to decode or resample: the card (default) or the plain PyTorch path on the CPU."))
     return p
-
-
-def _unported(args) -> str | None:
-    """The mode of ``args`` that the port does not have yet: the GUI."""
-    if args.input_filename is None:
-        return "the GUI (no input file)"
-    return None
 
 
 def _sharded_decoder(profile, n: int, device) -> ShardedDecoder:
@@ -420,7 +416,7 @@ def _traced(args, report: dict | None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = args.device == "cuda" and args.input_filename is not None and not args.version
+    cuda = args.device == "cuda" and not args.version
     if cuda:
         resolve_device("cuda")  # raises without CUDA, before the run
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -446,17 +442,28 @@ def _traced(args, report: dict | None) -> int:
 
 def _run(args, report: dict | None) -> int:
     """The run of :func:`main` after the argument parse."""
+    de = cfg.load_de_settings()
     if args.version:
         print(f"noaa-apt-tpu-torch image decoder version {__version__}")
+        if de.get("check_updates", False):
+            result = misc.check_updates(__version__)
+            if result is None:
+                print("Could not retrieve latest version available")
+            elif result[0]:
+                print(f'Version "{result[1]}" available for download!')
+            else:
+                print("You have the latest version available")
         return 0
-    missing = _unported(args)
-    if missing is not None:
-        log.error("%s is not ported yet", missing)
-        return 1
     device = resolve_device(args.device)  # raises without CUDA, before any work
     log.info("noaa-apt-tpu-torch image decoder version %s on %s", __version__, device)
-    settings = cfg.build_settings(cfg.load_de_settings(), args.profile, args.wav_steps,
-                                  args.export_resample_filtered)
+    settings = cfg.build_settings(de, args.profile, args.wav_steps, args.export_resample_filtered)
+
+    if args.input_filename is None:
+        # GUI mode (main.rs:64-71): no input file opens the window.
+        from . import gui
+
+        gui.main(bool(de.get("check_updates", False)), settings, device)
+        return 0
 
     if args.resample is not None:
         t0 = time.perf_counter()

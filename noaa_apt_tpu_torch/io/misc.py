@@ -3,10 +3,10 @@
 Behavioral contract: reference ``src/misc.rs:177-385`` — file mtime
 read/write and the mini-format filename parser
 (``%Y%m%d%H%M%S %N %! %1-%9``) with the reference's exact fallback
-chain: try every configured format, else mtime + NOAA 19.
+chain: try every configured format, else mtime + NOAA 19; and the
+update check against the project site (misc.rs:66-90).
 
-A copy of ``noaa_apt_tpu/io/misc.py`` without ``parse_version`` and
-``check_updates`` (a web service the port does not call).
+A copy of ``noaa_apt_tpu/io/misc.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,46 @@ def write_timestamp(timestamp: int, filename) -> None:
         os.utime(filename, (timestamp, timestamp))
     except OSError:
         raise err.InternalError("Could not write timestamp to file")
+
+
+def parse_version(v: str):
+    """Semver 2.0 sort key for ``MAJOR.MINOR.PATCH[-PRE][+BUILD]``.
+
+    The reference compares released versions with the ``semver`` crate
+    (misc.rs:66-90), so tags like ``1.5.0-beta`` must parse and order
+    below ``1.5.0``.  Build metadata is ignored; pre-release
+    identifiers compare numerically when numeric, lexically otherwise,
+    numeric before alphanumeric, fewer identifiers first.
+    """
+    core, _, pre = v.strip().split("+", 1)[0].partition("-")
+    nums = tuple(int(x) for x in core.split("."))
+    if len(nums) != 3:
+        raise ValueError(f"not a semver version: {v!r}")
+    if pre:
+        ids = tuple(
+            (0, int(p), "") if p.isdigit() else (1, 0, p) for p in pre.split(".")
+        )
+        return (*nums, 0, ids)
+    return (*nums, 1, ())
+
+
+def check_updates(current: str) -> tuple[bool, str] | None:
+    """Check the project site for a newer release (misc.rs:66-90).
+
+    Returns (newer_available, latest_version) or None on any failure
+    (logged, never fatal).
+    """
+    try:
+        from urllib.request import urlopen
+
+        addr = f"https://noaa-apt.mbernardi.com.ar/version_check?{current}"
+        with urlopen(addr, timeout=10) as r:
+            latest = r.read().decode().rstrip("\n")
+
+        return parse_version(latest) > parse_version(current), latest
+    except Exception as e:
+        log.warning("Error checking for updates: %s", e)
+        return None
 
 
 _FREQ_REFERENCES = [

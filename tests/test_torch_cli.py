@@ -8,7 +8,9 @@ must agree under the +-1 / 0.1% rule and the port's finish stage, given
 the JAX package's grey rows, must give the JAX PNG exactly.
 """
 
+import io
 import json
+import sys
 from datetime import datetime
 from pathlib import Path
 
@@ -148,17 +150,29 @@ def test_cli_raw_out_then_npy_matches_jax(tmp_path, pass_wav):
         j_process(jraw, JContrast.minmax(), JRotate.NO))
 
 
-@pytest.mark.parametrize("flags,what", [(["--distributed", "2"], "--distributed")])
-def test_cli_unported_options_exit_1(tmp_path, caplog, pass_wav, flags, what):
-    """Only the GUI (no input) is left unported: it exits 1 and writes no
-    file.  ``--distributed`` is ported: it decodes, and its PNG is the
-    one-device run's."""
+@pytest.fixture
+def gui_calls(monkeypatch):
+    """The port's ``gui.main`` replaced by a recorder of its arguments."""
+    from noaa_apt_tpu_torch import gui
+
+    calls = []
+    monkeypatch.setattr(gui, "main", lambda *a: calls.append(a))
+    return calls
+
+
+def test_cli_ported_options_and_no_input_gui(tmp_path, caplog, pass_wav, gui_calls):
+    """Nothing is refused as unported.  ``--distributed`` decodes, and its
+    PNG is the one-device run's; no input opens the port's GUI
+    (``gui.main``) on the CPU device that ``--device cpu`` asks for, with
+    the settings file's update flag and profile, and writes no file."""
     assert cli.main([str(pass_wav), "-o", "one.png", "--device", "cpu"]) == 0
-    assert cli.main([str(pass_wav), "-o", "out.png", "--device", "cpu", *flags]) == 0
+    assert cli.main([str(pass_wav), "-o", "out.png", "--device", "cpu", "--distributed", "2"]) == 0
     assert Path("out.png").read_bytes() == Path("one.png").read_bytes()
-    assert f"{what} is not ported yet" not in caplog.text
-    assert cli.main(["-o", "gui.png", "--device", "cpu"]) == 1 and not Path("gui.png").exists()
-    assert "the GUI (no input file) is not ported yet" in caplog.text
+    assert cli.main(["-o", "gui.png", "--device", "cpu", "-p", "fast"]) == 0 and not Path("gui.png").exists()
+    assert "not ported yet" not in caplog.text
+    (check, settings, device), = gui_calls
+    assert check is True and device == torch.device("cpu")
+    assert settings.work_rate == cli.cfg.build_settings(cli.cfg.load_de_settings(), "fast").work_rate
 
 
 @pytest.fixture(scope="module")
@@ -342,10 +356,18 @@ def test_cli_profile_trace_refuses_a_trace_without_cuda_events(tmp_path, short_p
     assert "recorded no CUDA activity" in caplog.text
 
 
-def test_cli_directory_gui_version_and_debug(tmp_path, caplog, capsys, pass_wav):
+def test_cli_directory_gui_version_and_debug(tmp_path, caplog, capsys, pass_wav, monkeypatch):
     """A directory input decodes every WAV in it (fleet mode); no input
-    (the GUI) is refused; ``-v`` prints the version; ``-d`` logs at debug
-    level; ``-p`` overrides the settings file's profile."""
+    opens the GUI, which without a display raises
+    ``FeatureNotAvailableError`` as the JAX CLI does
+    (``tests/test_cli.py::test_gui_mode_unavailable``), and without CUDA
+    raises unless ``--device cpu`` is given; ``-v`` prints the version;
+    ``-d`` logs at debug level; ``-p`` overrides the settings file's
+    profile."""
+    from test_gui_app import _fake_tkinter
+
+    from noaa_apt_tpu_torch.err import FeatureNotAvailableError
+
     d = tmp_path / "passes"
     d.mkdir()
     (d / "pass.wav").write_bytes(pass_wav.read_bytes())
@@ -353,7 +375,24 @@ def test_cli_directory_gui_version_and_debug(tmp_path, caplog, capsys, pass_wav)
     assert json.loads(Path("fleet/fleet_report.json").read_text())["ok"] == 1
     assert png.read_png("fleet/pass.png").shape[1:] == (2080, 1)
     assert "not ported yet" not in caplog.text
-    assert cli.main(["--device", "cpu"]) == 1
+    tk = _fake_tkinter()
+    for name, mod in tk.items():
+        monkeypatch.setitem(sys.modules, name, mod)
+
+    def no_display():
+        raise tk["tkinter"].TclError("no display name and no $DISPLAY environment variable")
+
+    tk["tkinter"].Tk = no_display
+    monkeypatch.delitem(sys.modules, "noaa_apt_tpu_torch.gui.app", raising=False)
+    with pytest.raises(FeatureNotAvailableError):
+        cli.main(["--device", "cpu"])
+    monkeypatch.delitem(sys.modules, "noaa_apt_tpu_torch.gui.app", raising=False)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main([])
+    Path("cfg/noaa-apt-tpu/settings.toml").write_text(
+        Path("cfg/noaa-apt-tpu/settings.toml").read_text().replace("check_updates = true",
+                                                                   "check_updates = false"))
     assert cli.main(["-v"]) == 0 and "version" in capsys.readouterr().out
     report: dict = {}
     assert cli.main([str(pass_wav), "-o", "slow.png", "--device", "cpu", "-d", "-p", "slow",
@@ -499,3 +538,41 @@ def test_cli_resample_matches_jax(tmp_path, out):
     assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
     assert not Path("output.png").exists()
     assert cli.main(["gone.wav", "-r", "12480", "--device", "cpu", "-q"]) == 1
+
+
+class _Reply(io.BytesIO):
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
+@pytest.mark.parametrize("answer,message", [
+    (b"9.9.9\n", 'Version "9.9.9" available for download!'),
+    (b"0.1.0\n", "You have the latest version available"),
+    (None, "Could not retrieve latest version available"),
+])
+def test_cli_version_runs_the_update_check_as_jax(capsys, monkeypatch, answer, message):
+    """``-v`` with the settings file's ``check_updates = true`` (the
+    default) asks the project site, here a fake ``urlopen``, and prints
+    the JAX CLI's message after the version line: a newer release, the
+    latest, or offline."""
+    import urllib.request
+
+    urls = []
+
+    def urlopen(url, timeout=None):
+        urls.append((url, timeout))
+        if answer is None:
+            raise OSError("offline")
+        return _Reply(answer)
+
+    monkeypatch.setattr(urllib.request, "urlopen", urlopen)
+    assert jax_cli(["-v"]) == 0
+    jout = capsys.readouterr().out.splitlines()
+    assert cli.main(["-v"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert jout[-2:] == [f"noaa-apt-tpu image decoder version {cli.__version__}", message]
+    assert out == [f"noaa-apt-tpu-torch image decoder version {cli.__version__}", message]
+    assert urls[0] == urls[1] == ("https://noaa-apt.mbernardi.com.ar/version_check?0.1.0", 10)

@@ -665,3 +665,43 @@ def test_cuda_sharded_decode_matches_single(cuda_device, rate_hz):
     u8_s, sync_s = sdec.decode_render_input(pcm, len(pcm), Rate(rate_hz))
     assert sync_s == sync_1 and np.array_equal(u8_s, u8_1)
     assert set(sdec.last_stage_ms) >= {"upload", "halo", "resample", "demod_fir_corr", "gather", "select"}
+
+
+@pytest.mark.cuda
+def test_cuda_gui_decode_launches_each_kernel_once(cuda_device, tmp_path, monkeypatch):
+    """The GUI's Decode on the card (headless: in-memory widgets, inline
+    ``idle_add``): K1, K2 and K3 once each, the cached rows on the card;
+    Process then launches nothing, and its image equals the same GUI's on
+    the CPU."""
+    from noaa_apt_tpu_torch import ops
+    from noaa_apt_tpu_torch.gui import state as gstate
+    from noaa_apt_tpu_torch.gui import work
+    from noaa_apt_tpu_torch.io import config as cfg
+    from noaa_apt_tpu_torch.io import wav
+
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path / "cfg"))
+    wav.write_wav(tmp_path / "rec.wav", _pcm_rows(48000, 24).astype(np.float32),
+                  wav.WavSpec(1, 48000, 16, "int"))
+    images = {}
+    for device in (cuda_device, torch.device("cpu")):
+        widgets = gstate.Widgets()
+        state = gstate.GuiState(settings=cfg.build_settings(cfg.load_de_settings()), device=device)
+        gstate.set_widgets(widgets)
+        gstate.set_state(state)
+        widgets.dec_input_chooser.set(str(tmp_path / "rec.wav"))
+        widgets.p_rotate_combo.set("no")
+        ops.reset_launch_counts()
+        work.decode().join(timeout=300)
+        torch.cuda.synchronize()
+        assert widgets.progress.description == "Decoded", widgets.info.text
+        launches = ops.launch_counts()
+        work.process().join(timeout=300)
+        torch.cuda.synchronize()
+        assert widgets.progress.description == "Processed", widgets.info.text
+        assert ops.launch_counts() == launches
+        if device.type == "cuda":
+            assert launches == {"polyphase_resample": 1, "demod_fir_corr": 1, "select_peaks": 1,
+                                "unpack_sealed": 0}
+            assert state.decoded_signal.image.device.type == "cuda"
+        images[device.type] = state.processed_image
+    np.testing.assert_array_equal(images["cuda"], images["cpu"])

@@ -1,7 +1,8 @@
 """Isolation and device rules of the PyTorch port (``noaa_apt_tpu_torch``).
 
-- it imports neither ``jax`` nor any module of ``noaa_apt_tpu``, and
-  reads its resources (the palettes) from its own ``res/``;
+- it imports neither ``jax`` nor any module of ``noaa_apt_tpu``, nor PIL
+  (the card's machine has none), and reads its resources (the palettes,
+  the GUI's icon) from its own ``res/``;
 - its entry points run on the card and raise without CUDA unless the
   caller asks for the CPU;
 - importing its kernel modules needs no ``nvcc`` (kernels build at the
@@ -39,14 +40,16 @@ def _port_modules() -> list[str]:
 
 
 def test_port_never_loads_jax_or_the_jax_package():
-    """Importing every module of the port (old and new) loads neither."""
+    """Importing every module of the port (old and new, the GUI's Tk shell
+    included) loads neither, nor PIL."""
     mods = _port_modules()
     assert {"noaa_apt_tpu_torch.io.config", "noaa_apt_tpu_torch.io.context",
             "noaa_apt_tpu_torch.post.telemetry", "noaa_apt_tpu_torch.post.imageext",
             "noaa_apt_tpu_torch.post.palette", "noaa_apt_tpu_torch.io.misc",
             "noaa_apt_tpu_torch.graph.debug", "noaa_apt_tpu_torch.graph.resample_tool",
             "noaa_apt_tpu_torch.ops.pack", "noaa_apt_tpu_torch.native", "noaa_apt_tpu_torch.serve",
-            "noaa_apt_tpu_torch.stream",
+            "noaa_apt_tpu_torch.stream", "noaa_apt_tpu_torch.gui",
+            *(f"noaa_apt_tpu_torch.gui.{m}" for m in ("state", "misc", "work", "app")),
             *(f"noaa_apt_tpu_torch.geo.{m}" for m in ("geometry", "sgp4", "tle", "orbit",
                                                        "shapefile", "states", "map_overlay"))
             } <= set(mods)
@@ -54,8 +57,7 @@ def test_port_never_loads_jax_or_the_jax_package():
         "import importlib, sys\n"
         f"for name in {mods!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'noaa_apt_tpu' or m.startswith('noaa_apt_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'noaa_apt_tpu', 'PIL'))\n"
         "print(bad)\n"
         "assert not bad, bad\n"
     )
@@ -63,7 +65,7 @@ def test_port_never_loads_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|noaa_apt_tpu)(?:\.|\s|$)", re.M)
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|noaa_apt_tpu|PIL)(?:\.|\s|$)", re.M)
 
 
 def test_source_scan_finds_no_jax_imports():
@@ -71,7 +73,8 @@ def test_source_scan_finds_no_jax_imports():
     assert len(files) > 15
     assert {PORT / "geo" / "map_overlay.py", PORT / "geo" / "sgp4.py", PORT / "io" / "misc.py",
             PORT / "graph" / "debug.py", PORT / "graph" / "resample_tool.py", PORT / "ops" / "pack.py",
-            PORT / "native" / "__init__.py", PORT / "serve.py", PORT / "stream.py"} <= set(files)
+            PORT / "native" / "__init__.py", PORT / "serve.py", PORT / "stream.py",
+            *(PORT / "gui" / f"{m}.py" for m in ("__init__", "state", "misc", "work", "app"))} <= set(files)
     offenders = [str(p.relative_to(ROOT)) for p in files if _IMPORT.search(p.read_text())]
     assert offenders == []
 
@@ -207,8 +210,8 @@ def test_finish_image_refuses_unported_features(caplog):
 
 
 def test_port_ships_its_own_resources(monkeypatch):
-    """The palettes and shapefiles resolve inside the port's package (and
-    are package data), not in ``noaa_apt_tpu/res``."""
+    """The palettes, shapefiles and the GUI's icon resolve inside the
+    port's package (and are package data), not in ``noaa_apt_tpu/res``."""
     import tomllib
 
     from noaa_apt_tpu_torch.io.config import res_path
@@ -218,7 +221,8 @@ def test_port_ships_its_own_resources(monkeypatch):
     assert len(list(res_path("palettes").glob("*.png"))) == 22
     assert sorted(p.name for p in res_path("shapefiles").glob("*.shp")) == ["countries.shp", "lakes.shp"]
     data = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"]
-    assert {"res/palettes/*.png", "res/shapefiles/*.shp"} <= set(data["noaa_apt_tpu_torch"])
+    assert {"res/palettes/*.png", "res/shapefiles/*.shp", "res/icon.png"} <= set(data["noaa_apt_tpu_torch"])
+    assert res_path("icon.png").read_bytes() == (ROOT / "noaa_apt_tpu" / "res" / "icon.png").read_bytes()
 
 
 def test_host_library_is_the_ports_own_build():
