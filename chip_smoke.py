@@ -818,7 +818,7 @@ def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k
          k1_variant=polyphase_resample.last_variant if k1_variant else None,
          wall_s=report["wall_s"], load_s=report["load_s"], decode_s=report["decode_s"],
          finish_s=report["finish_s"], save_s=report["save_s"], ingest_s=report["ingest_s"],
-         payload_bytes=report["payload_bytes"], upload_host_ms=report["upload_host_ms"],
+         payload_bytes=report["payload_bytes"],
          stage_ms=report["stage_ms"], telemetry_ms=report["telemetry_ms"], channels=channels,
          sync_spacing=spacing)
     return {**report, "launches": launches, "channels": channels}
@@ -1055,7 +1055,7 @@ def unpack_phase(torch, dev, wav48: Path) -> dict:
                       payload.coeff, "48000/standard pass", want_prefix=plain.data.numpy())
     n_esc = int((payload.buf[payload.nb : payload.nb + payload.n_esc_pad] < payload.nb).sum())
     emit("unpack", name="unpack_sealed", bit_equal=True, n_esc=n_esc, work_true=payload.work_true,
-         prepare_s=prepare_s, upload_host_ms=decc.last_upload["host_ms"],
+         prepare_s=prepare_s,
          plain_i16_bytes=int(plain.data.numel() * 2), **rec)
 
     # Escapes: a quiet carrier with full-scale noise bursts, at pass length.

@@ -69,6 +69,7 @@ import socket
 import sys
 import time
 from datetime import datetime
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -90,6 +91,7 @@ from .parallel import Mesh, ShardedDecoder, fleet_shard, init_distributed
 from .parallel.dist import rank, world_size
 from .post import contrast as ct
 from .serve import decode_fleet
+from .spans import span
 from .stream import StreamingDecoder
 from .types import (SAT_IDS, ColorSettings, Contrast, ContrastKind, MapSettings, OrbitSettings,
                     RefTime, Rotate)
@@ -357,6 +359,7 @@ def _fleet(args, settings, contrast: Contrast, rotate: Rotate, orbit: OrbitSetti
             "realtime_factor": round(rep.realtime_factor, 1),
             "rows": sum(r.n_rows for r in rep.ok),
             "stage_seconds": rep.stage_totals(),
+            "wait_seconds": {k: round(v, 3) for k, v in rep.waits.items()},
             "compile_variants": rep.compile_variants,
             "passes": [
                 {
@@ -394,9 +397,10 @@ def main(argv=None, report: dict | None = None) -> int:
     decoder's per-stage milliseconds and its ``telemetry`` stage (None
     where the fused telemetry path did not run), the host ingest's seconds
     (``ingest_s``, None for ``--ingest device``) and the bytes of the
-    signal or payload copied to the device (``payload_bytes``) with that
-    copy's host-clock milliseconds (``upload_host_ms``).  A traced run
-    adds the trace's path (``trace``)."""
+    signal or payload copied to the device (``payload_bytes``).  A traced
+    run adds the trace's path (``trace``).  Each step's seconds are those of
+    its span (``apt.load``, ``apt.decode``, ``apt.finish``, ``apt.save``;
+    :mod:`spans`)."""
     args = build_parser().parse_args(argv)
     level = logging.DEBUG if args.debug else (logging.WARNING if args.quiet else logging.INFO)
     logging.basicConfig(level=level, format="%(levelname)s %(name)s: %(message)s")
@@ -410,18 +414,24 @@ def _traced(args, report: dict | None) -> int:
     """:func:`_run` under ``torch.profiler`` (``noaa_apt_tpu/cli.py:135-142``
     wraps the JAX run in ``jax.profiler.trace``): host activity, plus the
     card's when the run is on CUDA, exported as the Chrome trace
-    ``DIR/<host>.<pid>.trace.json``.  A run that launched a kernel on the
+    ``DIR/<host>.<pid>.trace.json``.  The ``apt.*`` spans of every thread
+    are recorded (the fleet's loaders and encoders too) where the installed
+    torch has ``profile_all_threads``.  A run that launched a kernel on the
     card but whose profile holds no CUDA event (the profiler could not
     record the card) fails (exit 1) and writes no trace."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
     cuda = args.device == "cuda" and not args.version
     if cuda:
         resolve_device("cuda")  # raises without CUDA, before the run
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    try:
+        extra = {"experimental_config": _ExperimentalConfig(profile_all_threads=True)}
+    except TypeError:  # a torch without the option records the calling thread only
+        extra = {}
     before = ops.launch_counts()
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, **extra) as prof:
         rc = _run(args, report)
         if cuda:
             torch.cuda.synchronize()
@@ -499,28 +509,29 @@ def _run(args, report: dict | None) -> int:
     if Path(args.input_filename).is_dir():
         return _fleet(args, settings, contrast, rotate, orbit, device, report)
 
-    t = [time.perf_counter()]
-    decoder, sync_pos = None, None
+    sync_pos = None
+    npy = str(args.input_filename).endswith(".npy")
     try:
-        color = _color_settings(args, settings)
-        if str(args.input_filename).endswith(".npy"):
-            # Re-process a previously decoded raw signal (see --raw-out).
-            raw = np.load(args.input_filename).astype(np.float32)
-            t.append(time.perf_counter())
-            t.append(t[-1])
-            img = process(raw, contrast, rotate, color, orbit, context)
-        else:
-            signal, rate = wav.load_device_ready(args.input_filename)
-            t.append(time.perf_counter())
+        with span("apt.load") as load:
+            color = _color_settings(args, settings)
+            if npy:
+                # Re-process a previously decoded raw signal (see --raw-out).
+                raw = np.load(args.input_filename).astype(np.float32)
+            else:
+                signal, rate = wav.load_device_ready(args.input_filename)
+        # Each branch decodes, and leaves the finish stage's call in ``finish``.
+        with span("apt.decode") as decode:
             steps = settings.export_wav or settings.export_resample_filtered
             distributed = args.distributed > 1
-            if steps:
+            if npy or steps:
                 decoder = None
             elif distributed:
                 decoder = _sharded_decoder(settings.profile(), args.distributed, device)
             else:
                 decoder = Decoder(settings.profile(), device=device, ingest=args.ingest)
-            if steps:
+            if npy:
+                finish = partial(process, raw, contrast, rotate, color, orbit, context)
+            elif steps:
                 # The step-exporting decode (noaa_apt_tpu/cli.py:521-529).
                 # --export-resample-filtered alone routes here too: it moves
                 # the first resample to the reference's export grid.
@@ -529,11 +540,12 @@ def _run(args, report: dict | None) -> int:
                 if args.raw_out:
                     np.save(args.raw_out, flat)
                     log.info("Saved raw decoded signal to %s", args.raw_out)
-                t.append(time.perf_counter())
-                # Contrast on the card, as for Decoder.decode's rows.
-                rows = torch.from_numpy(flat.reshape(-1, PX_PER_ROW)).to(device)
-                img = process(DecodeResult(rows, rows.shape[0], sync_pos), contrast, rotate, color,
-                              orbit, context)
+
+                def finish():
+                    # Contrast on the card, as for Decoder.decode's rows.
+                    rows = torch.from_numpy(flat.reshape(-1, PX_PER_ROW)).to(device)
+                    return process(DecodeResult(rows, rows.shape[0], sync_pos), contrast, rotate, color,
+                                   orbit, context)
             elif args.sync and not args.raw_out and not (distributed and args.ingest != "device"):
                 # Fused path: the same levels table as noaa_apt_tpu/cli.py:489-496.
                 if contrast.kind == ContrastKind.PERCENT:
@@ -555,20 +567,21 @@ def _run(args, report: dict | None) -> int:
                     gray, sync_pos = decoder.decode_render(payload, *levels)
                 else:  # device ingest, or an l == 1 rate pair
                     gray, sync_pos = decoder.decode_render_input(signal, len(signal), rate, *levels)
-                t.append(time.perf_counter())
-                context.status(0.5, "Generating image")
-                img = finish_image(gray, contrast.kind, rotate, color, orbit, context)
+
+                def finish():
+                    context.status(0.5, "Generating image")
+                    return finish_image(gray, contrast.kind, rotate, color, orbit, context)
             else:  # the sharded decoder ignores --ingest, as in the JAX CLI
                 raw = decoder.decode(signal, rate, args.sync, context)
                 sync_pos = raw.sync_positions
                 if args.raw_out:
                     np.save(args.raw_out, raw.signal())
                     log.info("Saved raw decoded signal to %s", args.raw_out)
-                t.append(time.perf_counter())
-                img = process(raw, contrast, rotate, color, orbit, context)
-        t.append(time.perf_counter())
-        png.write_png(out, img)
-        t.append(time.perf_counter())
+                finish = partial(process, raw, contrast, rotate, color, orbit, context)
+        with span("apt.finish") as finished:
+            img = finish()
+        with span("apt.save") as save:
+            png.write_png(out, img)
     except err.AptError as e:
         log.error("%s", e)
         return 1
@@ -578,10 +591,10 @@ def _run(args, report: dict | None) -> int:
         upload = decoder.last_upload if decoder is not None and decoder.last_upload else {}
         report.update({
             "ingest_s": decoder.last_ingest_s if decoder is not None else None,
-            "payload_bytes": upload.get("bytes"), "upload_host_ms": upload.get("host_ms"),
-            "load_s": t[1] - t[0], "decode_s": t[2] - t[1], "finish_s": t[3] - t[2],
-            "save_s": t[4] - t[3], "wall_s": t[4] - t[0], "rows": int(img.shape[0]),
-            "sync_positions": sync_pos, "stage_ms": stage_ms,
+            "payload_bytes": upload.get("bytes"),
+            "load_s": load.seconds, "decode_s": decode.seconds,
+            "finish_s": finished.seconds, "save_s": save.seconds, "wall_s": save.end - load.start,
+            "rows": int(img.shape[0]), "sync_positions": sync_pos, "stage_ms": stage_ms,
             "telemetry_ms": stage_ms.get("telemetry"),
         })
     return 0

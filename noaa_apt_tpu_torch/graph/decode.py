@@ -60,6 +60,7 @@ from ..ops.resample import polyphase_resample
 from ..ops.select import select_peaks
 from ..ops.stage import demod_fir_corr
 from ..post.telemetry import telemetry_from_stats
+from ..spans import span
 
 log = logging.getLogger(__name__)
 
@@ -460,7 +461,8 @@ def _grouped_fetch(tensors: list) -> list:
     concatenated along the first dim, fetched, split back."""
     if not tensors:
         return []
-    host = torch.cat(tensors).cpu().numpy()
+    with span("apt.wait.rows"):
+        host = torch.cat(tensors).cpu().numpy()
     return np.split(host, np.cumsum([t.shape[0] for t in tensors])[:-1])
 
 
@@ -490,7 +492,8 @@ class PendingRender:
     def get(self) -> tuple[np.ndarray, list[int]]:
         if self.error is not None:
             raise self.error
-        out = self.u8.cpu().numpy()
+        with span("apt.wait.rows"):
+            out = self.u8.cpu().numpy()
         _close_clock(self)
         return out, self.sync_pos
 
@@ -513,13 +516,16 @@ class PendingRenderTelemetry:
     def get(self) -> tuple[np.ndarray, list[int]]:
         if self.error is not None:
             raise self.error
-        low, high = _telemetry_levels(*self.stats.cpu().numpy())
+        with span("apt.wait.rows"):
+            stats = self.stats.cpu().numpy()
+        low, high = _telemetry_levels(*stats)
         if self.clock is not None:
             self.clock.mark("telemetry")  # row gather, band statistics, their fetch, wedge math
         u8 = _map_u8(self.img, _f32(low, self.img), _f32(high, self.img))
         if self.clock is not None:
             self.clock.mark("rows_levels_u8")
-        out = u8.cpu().numpy()
+        with span("apt.wait.rows"):
+            out = u8.cpu().numpy()
         _close_clock(self)
         return out, self.sync_pos
 
@@ -612,8 +618,8 @@ class Decoder:
         self._chain_dev: _DeviceChain | None = None
         # Per-stage milliseconds of the last decode (see _StageClock).
         self.last_stage_ms: dict[str, float] = {}
-        # The last host -> device copy of a signal or payload: its bytes
-        # and its host-clock milliseconds; and prepare_work's seconds.
+        # The bytes of the last host -> device copy of a signal or
+        # payload; and prepare_work's seconds.
         self.last_upload: dict | None = None
         self.last_ingest_s: float | None = None
         self._peers: dict = {}
@@ -692,17 +698,20 @@ class Decoder:
         return fast_resample_native(np.asarray(signal, np.float32), l, m, coeff, out_len, exact=exact)
 
     def _host_to_device(self, arr: np.ndarray, upload=None) -> torch.Tensor:
-        """``arr`` on the decoder's device; records the copy's bytes and
-        host-clock milliseconds in ``last_upload``.  A caller's ``upload``
+        """``arr`` on the decoder's device; records the copy's bytes in
+        ``last_upload``.  The host copy out of a read-only memmap (span
+        ``apt.upload.copy``, empty where none is made) and the copy to the
+        device (``apt.upload.h2d``) are timed apart.  A caller's ``upload``
         (:meth:`prepare_work`) makes the copy instead and keeps its own
         accounting."""
         if upload is not None:
             return upload(arr)
-        t0 = time.perf_counter()
-        if not arr.flags.writeable or not arr.flags.c_contiguous:
-            arr = np.array(arr)  # read-only memmap -> a copy torch may wrap
-        out = torch.from_numpy(arr).to(self.device)
-        self.last_upload = {"bytes": int(arr.nbytes), "host_ms": (time.perf_counter() - t0) * 1e3}
+        with span("apt.upload.copy"):
+            if not arr.flags.writeable or not arr.flags.c_contiguous:
+                arr = np.array(arr)  # read-only memmap -> a copy torch may wrap
+        with span("apt.upload.h2d"):
+            out = torch.from_numpy(arr).to(self.device)
+        self.last_upload = {"bytes": int(arr.nbytes)}
         return out
 
     def prepare_work(self, signal, input_rate: Rate, to_device: bool = False, context=None,
@@ -913,8 +922,9 @@ class Decoder:
         """K3 over corr[:work_true - g] -> (peaks on device, host list)."""
         spr, md, max_peaks = sy.selector_params(work_true, self.work_rate)
         g = self._chain().template.shape[0]
-        peaks, lists = select_peaks(corr[None, :], [max(0, work_true - g)], spr, md, max_peaks,
-                                    to_host=True)
+        with span("apt.wait.peaks"):  # the host blocks for K3's result
+            peaks, lists = select_peaks(corr[None, :], [max(0, work_true - g)], spr, md, max_peaks,
+                                        to_host=True)
         clock.mark("select")  # K3 and its one fetch of (k, overflow, peaks)
         sync_pos = lists[0]
         bad = _check_sync_count(sync_pos)
@@ -946,8 +956,9 @@ class Decoder:
         rows = torch.zeros((len(fronts), length), dtype=torch.float32, device=self.device)
         for b, (_, c, _) in enumerate(fronts):
             rows[b, : c.shape[0]] = c
-        peaks, lists = select_peaks(rows, [max(0, wt - g) for _, _, wt in fronts], spr, md, max_peaks,
-                                    to_host=True)
+        with span("apt.wait.peaks"):  # the host blocks for K3's result
+            peaks, lists = select_peaks(rows, [max(0, wt - g) for _, _, wt in fronts], spr, md,
+                                        max_peaks, to_host=True)
         clock.mark("select")  # K3 and its one fetch of (k, overflow, peaks)
         members = []
         for b, ((filt, _, work_true), sync_pos) in enumerate(zip(fronts, lists)):

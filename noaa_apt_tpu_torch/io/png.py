@@ -19,6 +19,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import err
+from ..spans import span
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> PNG color type (gray, RGB, RGBA)
@@ -39,12 +40,16 @@ def encode_png(img: np.ndarray, level: int = 1) -> bytes:
     raw[:, 0] = 0  # filter type None per scanline
     raw[:, 1:] = img.reshape(h, w * ch)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[ch], 0, 0, 0)
-    idat = zlib.compress(raw.tobytes(), level)
+    data = raw.tobytes()
+    with span("apt.png.deflate"):
+        idat = zlib.compress(data, level)
     return _SIG + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", idat) + _chunk(b"IEND", b"")
 
 
 def write_png(path, img: np.ndarray, level: int = 1) -> None:
-    Path(path).write_bytes(encode_png(img, level))
+    data = encode_png(img, level)
+    with span("apt.png.write"):
+        Path(path).write_bytes(data)
 
 
 def png_size(path) -> tuple[int, int]:

@@ -23,7 +23,6 @@ equals ``Decoder.decode`` exactly (``tests/test_torch_parallel.py``).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -124,7 +123,6 @@ class ShardedDecoder(Decoder):
         be ``n_pad`` long."""
         g = plan.geom
         ci, lo = g.ci, g.l_in
-        t0 = time.perf_counter()
         if isinstance(signal, torch.Tensor):
             if int(signal.shape[0]) != plan.n_pad:
                 raise err.InternalError(f"pre-uploaded input is {int(signal.shape[0])}, expected {plan.n_pad}")
@@ -145,8 +143,7 @@ class ShardedDecoder(Decoder):
             ext[lo + n : lo + ci].zero_()
             windows.append(ext)
         if not isinstance(signal, torch.Tensor):
-            self.last_upload = {"bytes": sum(p.numel() * p.element_size() for p in parts),
-                                "host_ms": (time.perf_counter() - t0) * 1e3}
+            self.last_upload = {"bytes": sum(p.numel() * p.element_size() for p in parts)}
         return windows
 
     def _halo_exchange(self, windows: list, g: HaloGeometry) -> None:

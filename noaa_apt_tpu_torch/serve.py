@@ -19,7 +19,14 @@ On the CPU the upload is a plain tensor.
 
 The decoder's ``last_ingest_s``, ``last_upload``, ``host8_fallbacks`` and
 ``last_stage_ms`` are written from several threads here; the fleet reads
-none of them and times its stages with its own clocks.
+none of them and times its stages with its own spans (:mod:`spans`).  The
+calling thread's spans (``apt.fleet.wait_loader``, ``apt.fleet.dispatch``,
+``apt.fleet.wait_encoder``, ``apt.fleet.drain``) show in any profiler
+started on that thread; the loaders' (``apt.fleet.load``,
+``apt.fleet.ingest``, ``apt.fleet.wait_pinned``, ``apt.fleet.stage``) and
+the encoders' (``apt.fleet.fetch``, ``apt.fleet.encode``, ``apt.wait.rows``,
+``apt.png.*``) only in one that records every thread (``cli
+--profile-trace``).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from .graph.decode import (HOST_INGEST, Decoder, PackedWorkPayload, PendingRende
                            PendingRenderTelemetry, pad_bucket)
 from .graph.process import finish_image, process
 from .io import png, wav
+from .spans import span
 from .types import Contrast, ContrastKind, Rotate
 
 log = logging.getLogger(__name__)
@@ -85,12 +93,18 @@ class FleetReport:
     CPU nothing crosses a link: ``uploaded_MB`` counts the bytes handed to
     the device thread, and the other two are None.  Uploads
     the device thread makes itself (an l == 1 rate under a host ingest,
-    ``sync=False`` with device ingest) are not counted."""
+    ``sync=False`` with device ingest) are not counted.
+
+    ``waits``: the calling (device) thread's seconds blocked, summed from
+    its spans: ``loader`` (no loaded pass ready), ``encoder`` (the encode
+    queue full) and ``drain`` (from the last dispatch to the threads'
+    join).  The stage that the device thread waits on most sets the pace."""
 
     results: list[PassResult] = field(default_factory=list)
     wall_seconds: float = 0.0
     compile_variants: int = 0
     link: dict = field(default_factory=dict)
+    waits: dict = field(default_factory=dict)
 
     @property
     def ok(self) -> list[PassResult]:
@@ -173,20 +187,23 @@ class _LoaderUpload:
         the padding is written straight into the pinned buffer."""
         size = len(arr) if pad_to is None else pad_to
         if not self.uploads.cuda:
-            host = np.zeros(size, arr.dtype)
-            host[: len(arr)] = arr
+            with span("apt.fleet.stage"):
+                host = np.zeros(size, arr.dtype)
+                host[: len(arr)] = arr
             self.uploads.add(host.nbytes)
             return torch.from_numpy(host)
         dtype = _TORCH_DTYPES[arr.dtype]
         n = size * arr.itemsize
         if self.free is not None:
-            self.free.synchronize()
+            with span("apt.fleet.wait_pinned"):
+                self.free.synchronize()
         if self.pinned is None or self.pinned.numel() < n:
             self.pinned = torch.empty(max(n, 1), dtype=torch.uint8, pin_memory=True)
         host = self.pinned[:n].view(dtype)
         staged = host.numpy()
-        staged[: len(arr)] = arr
-        staged[len(arr):] = 0
+        with span("apt.fleet.stage"):
+            staged[: len(arr)] = arr
+            staged[len(arr):] = 0
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(self.stream):
             out = torch.empty(size, dtype=dtype, device=self.uploads.device)
@@ -297,7 +314,7 @@ def decode_fleet(
 
     loaded: "queue.Queue" = queue.Queue(maxsize=max(2, loaders))
     to_encode: "queue.Queue" = queue.Queue(maxsize=4)
-    report = FleetReport()
+    report = FleetReport(waits={"loader": 0.0, "encoder": 0.0, "drain": 0.0})
     uploads = _Uploads(dev)
     compute = uploads.compute  # None on the CPU: torch.cuda.stream(None) does nothing
     t_start = time.perf_counter()
@@ -313,53 +330,55 @@ def decode_fleet(
                 except StopIteration:
                     return
             try:
-                t0 = time.perf_counter()
-                signal, rate = wav.load_device_ready(p)
-                t1 = time.perf_counter()
-                if ingest in HOST_INGEST:
-                    work = dec.prepare_work(signal, rate, to_device=True, upload=up)
-                elif fused_levels is not None:
-                    # Device ingest: upload the raw recording, padded to its bucket.
-                    work = ("raw", up(signal, pad_to=pad_bucket(len(signal))), len(signal))
-                else:
-                    work = None
-                ready = up.take()
-                t2 = time.perf_counter()
-                loaded.put((i, p, signal, rate, work, ready, None, t1 - t0, t2 - t1))
+                with span("apt.fleet.load") as load:
+                    signal, rate = wav.load_device_ready(p)
+                with span("apt.fleet.ingest") as ingested:
+                    if ingest in HOST_INGEST:
+                        work = dec.prepare_work(signal, rate, to_device=True, upload=up)
+                    elif fused_levels is not None:
+                        # Device ingest: upload the raw recording, padded to its bucket.
+                        work = ("raw", up(signal, pad_to=pad_bucket(len(signal))), len(signal))
+                    else:
+                        work = None
+                    ready = up.take()
+                loaded.put((i, p, signal, rate, work, ready, None, load.seconds, ingested.seconds))
             except Exception as e:  # noqa: BLE001 - per-pass isolation
                 up.take()
                 loaded.put((i, p, None, None, None, None, str(e), 0.0, 0.0))
 
-    def write_img(res_item, img, out_name, t0):
+    def write_img(res_item, img, out_name):
         out = out_dir / (out_name + ".png")
         png.write_png(out, img, level=png_compress_level)
         res_item.output_path = out
-        res_item.encode_s = time.perf_counter() - t0
+
+    def encoded(res_item, encode: span):
+        res_item.encode_s = encode.seconds
         res_item.seconds += res_item.fetch_s + res_item.encode_s
 
     def encode_gray(res_item, p, out_name, gray):
-        t0 = time.perf_counter()
-        orb = orbit_for(p) if orbit_for is not None else orbit
-        res_item.n_rows = gray.shape[0]
-        if gray_ok and orb is None:
-            img = gray  # single-channel PNG: the same pixels, a quarter of the bytes
-        else:
-            img = finish_image(gray, contrast.kind, rotate, color, orb)
-        write_img(res_item, img, out_name, t0)
+        with span("apt.fleet.encode") as encode:
+            orb = orbit_for(p) if orbit_for is not None else orbit
+            res_item.n_rows = gray.shape[0]
+            if gray_ok and orb is None:
+                img = gray  # single-channel PNG: the same pixels, a quarter of the bytes
+            else:
+                img = finish_image(gray, contrast.kind, rotate, color, orb)
+            write_img(res_item, img, out_name)
+        encoded(res_item, encode)
 
     def encode_item(item):
         if item[0] == "group":
             # One grouped fetch serves the whole batch; a member's guard
             # failure is its own error entry.
             _, metas, pending_batch = item
-            t0 = time.perf_counter()
             try:
-                results = pending_batch.get()
+                with span("apt.fleet.fetch") as fetch:
+                    results = pending_batch.get()
             except Exception as e:  # noqa: BLE001 - whole-group failure
                 for res_item, _p, _n in metas:
                     res_item.error = str(e)
                 return
-            fetch_each = (time.perf_counter() - t0) / max(1, len(metas))
+            fetch_each = fetch.seconds / max(1, len(metas))
             for (res_item, p, out_name), r in zip(metas, results):
                 res_item.fetch_s = fetch_each
                 try:
@@ -372,18 +391,20 @@ def decode_fleet(
                     res_item.error = str(e)
             return
         res_item, p, out_name, raw = item
-        t0 = time.perf_counter()
         try:
             if isinstance(raw, (PendingRender, PendingRenderTelemetry)):
-                gray, _sync_pos = raw.get()
-                res_item.fetch_s = time.perf_counter() - t0
+                with span("apt.fleet.fetch") as fetch:
+                    gray, _sync_pos = raw.get()
+                res_item.fetch_s = fetch.seconds
                 encode_gray(res_item, p, out_name, gray)
             else:
-                orb = orbit_for(p) if orbit_for is not None else orbit
-                img = process(raw, contrast, rotate, color, orb)
-                if gray_ok and orb is None and img.ndim == 3:
-                    img = np.ascontiguousarray(img[..., 0])  # the unfused path's channels are gray
-                write_img(res_item, img, out_name, t0)
+                with span("apt.fleet.encode") as encode:
+                    orb = orbit_for(p) if orbit_for is not None else orbit
+                    img = process(raw, contrast, rotate, color, orb)
+                    if gray_ok and orb is None and img.ndim == 3:
+                        img = np.ascontiguousarray(img[..., 0])  # the unfused path's channels are gray
+                    write_img(res_item, img, out_name)
+                encoded(res_item, encode)
         except Exception as e:  # noqa: BLE001
             res_item.error = str(e)
 
@@ -400,6 +421,31 @@ def decode_fleet(
         """Make the compute stream wait for a loader's copy."""
         if ready is not None:
             compute.wait_event(ready)
+
+    # The device thread's two queue waits: a non-blocking attempt first, so
+    # that a span covers only time spent blocked.
+    def next_loaded(timeout=None):
+        """The next loaded pass (``queue.Empty`` after ``timeout``)."""
+        try:
+            return loaded.get_nowait()
+        except queue.Empty:
+            pass
+        wait = span("apt.fleet.wait_loader")
+        try:
+            with wait:
+                return loaded.get(timeout=timeout)
+        finally:
+            report.waits["loader"] += wait.seconds
+
+    def to_encoders(item) -> None:
+        try:
+            to_encode.put_nowait(item)
+            return
+        except queue.Full:
+            pass
+        with span("apt.fleet.wait_encoder") as wait:
+            to_encode.put(item)
+        report.waits["encoder"] += wait.seconds
 
     # Each loader's pinned buffer and side stream, made here so that a
     # failure raises from this call, not inside a thread.
@@ -421,18 +467,18 @@ def decode_fleet(
         nonlocal group, group_key
         if not group:
             return
-        t0 = time.perf_counter()
         try:
-            for g in group:
-                wait_for(g[4])
-            pend_b = dec.decode_render_batch(
-                [g[3] for g in group], *fused_levels, fetch=False, pad_to=fleet_batch,
-            )
-            each = (time.perf_counter() - t0) / len(group)
+            with span("apt.fleet.dispatch") as dispatch:
+                for g in group:
+                    wait_for(g[4])
+                pend_b = dec.decode_render_batch(
+                    [g[3] for g in group], *fused_levels, fetch=False, pad_to=fleet_batch,
+                )
+            each = dispatch.seconds / len(group)
             for g in group:
                 g[0].device_s = each
                 g[0].seconds = each
-            to_encode.put(("group", [(g[0], g[1], g[2]) for g in group], pend_b))
+            to_encoders(("group", [(g[0], g[1], g[2]) for g in group], pend_b))
         except Exception as e:  # noqa: BLE001 - group-level isolation
             for g in group:
                 g[0].error = str(e)
@@ -446,7 +492,7 @@ def decode_fleet(
             # than GROUP_MAX_AGE_S) and no freshly loaded pass, dispatch.
             if group:
                 try:
-                    item = loaded.get(timeout=0.05)
+                    item = next_loaded(timeout=0.05)
                 except queue.Empty:
                     if (
                         len(group) * 2 >= fleet_batch
@@ -455,7 +501,7 @@ def decode_fleet(
                         flush_group()
                     continue
             else:
-                item = loaded.get()
+                item = next_loaded()
             i, p, signal, rate, work, ready, load_err, load_s, ingest_s = item
             pending -= 1
             res_item = PassResult(input_path=p, output_path=None)
@@ -491,43 +537,42 @@ def decode_fleet(
                     flush_group()
                 continue
             flush_group()
-            t0 = time.perf_counter()
             try:
-                wait_for(ready)
-                if work is not None and fused_levels is not None:
-                    if isinstance(work, tuple):
-                        deferred = dec.decode_render_input(
-                            work[1], work[2], rate, *fused_levels, fetch=False
-                        )
+                with span("apt.fleet.dispatch") as dispatch:
+                    wait_for(ready)
+                    if work is not None and fused_levels is not None:
+                        if isinstance(work, tuple):
+                            out = dec.decode_render_input(
+                                work[1], work[2], rate, *fused_levels, fetch=False
+                            )
+                        else:
+                            out = dec.decode_render(work, *fused_levels, fetch=False)
                     else:
-                        deferred = dec.decode_render(work, *fused_levels, fetch=False)
-                    res_item.device_s = time.perf_counter() - t0  # dispatch time
-                    res_item.seconds = res_item.device_s
-                    to_encode.put((res_item, p, out_names[i], deferred))
-                else:
-                    res = dec.decode(signal, rate, sync=sync, host_work=work)
-                    res_item.n_rows = res.n_rows
-                    res_item.device_s = time.perf_counter() - t0
-                    res_item.seconds = res_item.device_s
-                    to_encode.put((res_item, p, out_names[i], res))
+                        out = dec.decode(signal, rate, sync=sync, host_work=work)
+                        res_item.n_rows = out.n_rows
+                res_item.device_s = dispatch.seconds  # a deferred render's: its dispatch
+                res_item.seconds = res_item.device_s
+                to_encoders((res_item, p, out_names[i], out))
             except Exception as e:  # noqa: BLE001 - per-pass isolation
                 res_item.error = str(e)
                 log.warning("decode failed for %s: %s", p, e)
     finally:
         flush_group()
-        for _ in enc_threads:
-            to_encode.put(None)
-        for t in enc_threads:
-            t.join()
-        # If the device loop died early, blocked loaders must be drained
-        # or their join deadlocks on the full queue.
-        while any(t.is_alive() for t in loader_threads):
-            try:
-                loaded.get_nowait()
-            except queue.Empty:
-                time.sleep(0.01)
-        for t in loader_threads:
-            t.join()
+        with span("apt.fleet.drain") as drain:
+            for _ in enc_threads:
+                to_encode.put(None)
+            for t in enc_threads:
+                t.join()
+            # If the device loop died early, blocked loaders must be drained
+            # or their join deadlocks on the full queue.
+            while any(t.is_alive() for t in loader_threads):
+                try:
+                    loaded.get_nowait()
+                except queue.Empty:
+                    time.sleep(0.01)
+            for t in loader_threads:
+                t.join()
+        report.waits["drain"] = drain.seconds
 
     # An encoder death must not report passes as ok with no output.
     for r in results_by_idx.values():

@@ -103,7 +103,9 @@ def test_device_ingest_matches_jax(fleet_dir, tmp_path):
     assert set(rep.stage_totals()) == set(jrep.stage_totals())
     assert [f.name for f in PassResult.__dataclass_fields__.values()] == \
         [f.name for f in JPassResult.__dataclass_fields__.values()]
-    assert set(FleetReport.__dataclass_fields__) == set(JFleetReport.__dataclass_fields__)
+    # The port's report adds the device thread's waits (``waits``), which the JAX package lacks.
+    assert set(FleetReport.__dataclass_fields__) == set(JFleetReport.__dataclass_fields__) | {"waits"}
+    assert set(rep.waits) == {"loader", "encoder", "drain"} and all(v >= 0 for v in rep.waits.values())
     for r in rep.ok:
         assert r.n_rows >= 14 and r.device_s > 0 and r.encode_s > 0
         assert r.seconds == pytest.approx(r.device_s + r.fetch_s + r.encode_s)
@@ -295,7 +297,8 @@ def test_cli_directory_mode_matches_jax(fleet_dir, capsys, fleet_png):
     assert len(line) == len(jline) == 1 and line[0].split(",")[:2] == jline[0].split(",")[:2]
     got = json.loads(Path("port/fleet_report.json").read_text())
     want = json.loads(Path("jax/fleet_report.json").read_text())
-    assert set(got) == set(want) == REPORT_KEYS
+    assert set(want) == REPORT_KEYS and set(got) == REPORT_KEYS | {"wait_seconds"}
+    assert set(got["wait_seconds"]) == {"loader", "encoder", "drain"}
     assert set(got["stage_seconds"]) == set(want["stage_seconds"])
     assert all(set(p) == PASS_KEYS for p in got["passes"] + want["passes"])
     assert got["ok"] == want["ok"] == 3 and got["rows"] == want["rows"]
