@@ -397,7 +397,8 @@ def main(argv=None, report: dict | None = None) -> int:
     decoder's per-stage milliseconds and its ``telemetry`` stage (None
     where the fused telemetry path did not run), the host ingest's seconds
     (``ingest_s``, None for ``--ingest device``) and the bytes of the
-    signal or payload copied to the device (``payload_bytes``).  A traced
+    signal or payload copied to the device (``payload_bytes``) and the
+    PNG's IDAT strips (``png_strips``, 1 where it is one stream).  A traced
     run adds the trace's path (``trace``).  Each step's seconds are those of
     its span (``apt.load``, ``apt.decode``, ``apt.finish``, ``apt.save``;
     :mod:`spans`)."""
@@ -595,7 +596,7 @@ def _run(args, report: dict | None) -> int:
             "load_s": load.seconds, "decode_s": decode.seconds,
             "finish_s": finished.seconds, "save_s": save.seconds, "wall_s": save.end - load.start,
             "rows": int(img.shape[0]), "sync_positions": sync_pos, "stage_ms": stage_ms,
-            "telemetry_ms": stage_ms.get("telemetry"),
+            "telemetry_ms": stage_ms.get("telemetry"), "png_strips": png.png_strips(img),
         })
     return 0
 

@@ -13,6 +13,7 @@ import json
 import threading
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -101,7 +102,7 @@ def test_without_a_profiler_no_record_function_and_the_report_as_before(passes, 
     assert cli.main([str(passes / "p0.wav"), "-o", "o.png", "-q", "--device", "cpu"], report=report) == 0
     assert recorder == []
     assert set(report) == {"ingest_s", "payload_bytes", "load_s", "decode_s", "finish_s", "save_s", "wall_s",
-                           "rows", "sync_positions", "stage_ms", "telemetry_ms"}
+                           "rows", "sync_positions", "stage_ms", "telemetry_ms", "png_strips"}
     steps = [report[key] for key, _ in STEPS]
     assert all(s > 0 for s in steps) and sum(steps) <= report["wall_s"] <= sum(steps) + 0.05
     # The decoder's stage clock runs inside the decode step.
@@ -119,6 +120,28 @@ def test_span_records_where_torch_has_no_profiler_flag(monkeypatch, recorder):
     with spans.span("apt.test") as s:
         pass
     assert recorder == ["apt.test"] and s.end >= s.start > 0
+
+
+def test_png_strips_each_record_a_span_in_the_deflate_pool(recorder):
+    """A pass-sized PNG: one ``apt.png.deflate`` on the caller's thread, one
+    ``apt.png.strip`` a strip on the pool's threads."""
+    from noaa_apt_tpu_torch.io import png
+
+    img = np.random.default_rng(0).integers(0, 256, (1200, 2080, 4), dtype=np.uint8)
+    threads = set()
+    strip = png._deflate_strip
+
+    def deflate_strip(*args):
+        threads.add(threading.get_ident())
+        return strip(*args)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(png, "_deflate_strip", deflate_strip)
+        with profile(activities=[ProfilerActivity.CPU]):
+            png.encode_png(img)
+    assert recorder.count("apt.png.deflate") == 1
+    assert recorder.count("apt.png.strip") == png.png_strips(img) > 1
+    assert threading.get_ident() not in threads
 
 
 def test_fleet_calling_thread_records_its_waits_dispatches_and_drain(passes, monkeypatch):
