@@ -397,8 +397,11 @@ def main(argv=None, report: dict | None = None) -> int:
     decoder's per-stage milliseconds and its ``telemetry`` stage (None
     where the fused telemetry path did not run), the host ingest's seconds
     (``ingest_s``, None for ``--ingest device``) and the bytes of the
-    signal or payload copied to the device (``payload_bytes``) and the
-    PNG's IDAT strips (``png_strips``, 1 where it is one stream).  A traced
+    signal or payload copied to the device (``payload_bytes``), the
+    PNG's IDAT strips (``png_strips``, 1 where it is one stream) and the
+    input WAV's size in bytes, channels, bits a sample and sample format
+    (``wav_bytes``, ``wav_channels``, ``wav_bits``, ``wav_format``: "int"
+    or "float"; None for a ``.npy`` input).  A traced
     run adds the trace's path (``trace``).  Each step's seconds are those of
     its span (``apt.load``, ``apt.decode``, ``apt.finish``, ``apt.save``;
     :mod:`spans`)."""
@@ -512,6 +515,7 @@ def _run(args, report: dict | None) -> int:
 
     sync_pos = None
     npy = str(args.input_filename).endswith(".npy")
+    wav_info: dict = {}
     try:
         with span("apt.load") as load:
             color = _color_settings(args, settings)
@@ -519,7 +523,7 @@ def _run(args, report: dict | None) -> int:
                 # Re-process a previously decoded raw signal (see --raw-out).
                 raw = np.load(args.input_filename).astype(np.float32)
             else:
-                signal, rate = wav.load_device_ready(args.input_filename)
+                signal, rate = wav.load_device_ready(args.input_filename, info=wav_info)
         # Each branch decodes, and leaves the finish stage's call in ``finish``.
         with span("apt.decode") as decode:
             steps = settings.export_wav or settings.export_resample_filtered
@@ -597,6 +601,7 @@ def _run(args, report: dict | None) -> int:
             "finish_s": finished.seconds, "save_s": save.seconds, "wall_s": save.end - load.start,
             "rows": int(img.shape[0]), "sync_positions": sync_pos, "stage_ms": stage_ms,
             "telemetry_ms": stage_ms.get("telemetry"), "png_strips": png.png_strips(img),
+            **{k: wav_info.get(k) for k in wav.COUNTERS},
         })
     return 0
 

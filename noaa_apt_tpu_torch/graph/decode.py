@@ -827,7 +827,8 @@ class Decoder:
     def _upload(self, signal, n_true: int, dtype=None) -> torch.Tensor:
         """The first ``n_true`` samples on the device: 16-bit PCM stays
         int16 (K1 converts in-register), anything else becomes f32
-        (``dtype`` float32 makes int16 f32 too, as a mixed batch does)."""
+        (``dtype`` float32 makes int16 f32 too, as a mixed batch does).
+        A host array's float32 copy is the span ``apt.upload.cast``."""
         if isinstance(signal, torch.Tensor):
             x = signal[:n_true]
             if x.dtype != torch.int16 or dtype == np.float32:
@@ -835,7 +836,8 @@ class Decoder:
             return x.to(self.device).contiguous()
         arr = np.asarray(signal)[:n_true]
         if arr.dtype != np.int16 or dtype == np.float32:
-            arr = arr.astype(np.float32)
+            with span("apt.upload.cast"):
+                arr = arr.astype(np.float32)
         return self._host_to_device(arr)
 
     def _fronts(self, signals: list, n_trues: list, input_rate: Rate, clock: _StageClock,

@@ -28,6 +28,7 @@ import numpy as np
 
 from .. import err
 from ..core.frequency import Rate
+from ..spans import span
 
 log = logging.getLogger(__name__)
 
@@ -80,17 +81,37 @@ def _decode_pcm(data: bytes, audio_fmt: int, bits: int) -> tuple[str, np.ndarray
     return sample_format, arr
 
 
-def load_wav(path, raw_int16: bool = False) -> tuple[np.ndarray, WavSpec]:
+def load_wav(path, raw_int16: bool = False, info: dict | None = None) -> tuple[np.ndarray, WavSpec]:
     """Load a WAV file; returns (float32 channel-0 samples, spec).
 
     ``raw_int16``: return mono 16-bit PCM as the raw int16 buffer
-    (values identical after the usual exact f32 conversion)."""
+    (values identical after the usual exact f32 conversion).  ``info``,
+    if given, receives the file's counters (:func:`_counters`).  The
+    file's read is the span ``apt.wav.read``; the chunk walk, the
+    channel-0 take and the float32 copy are ``apt.wav.convert``."""
     path = Path(path)
     try:
-        raw = path.read_bytes()
+        with span("apt.wav.read"):
+            raw = path.read_bytes()
     except OSError as e:
         raise err.WavOpenError(str(e)) from e
+    with span("apt.wav.convert"):
+        signal, spec = _parse_wav(path, raw, raw_int16)
+    if info is not None:
+        info.update(_counters(len(raw), spec))
+    return signal, spec
 
+
+COUNTERS = ("wav_bytes", "wav_channels", "wav_bits", "wav_format")
+
+
+def _counters(n_bytes: int, spec: WavSpec) -> dict:
+    """The counters of a loaded WAV that the CLI's report carries (``COUNTERS``)."""
+    return dict(zip(COUNTERS, (n_bytes, spec.channels, spec.bits_per_sample, spec.sample_format)))
+
+
+def _parse_wav(path: Path, raw: bytes, raw_int16: bool) -> tuple[np.ndarray, WavSpec]:
+    """:func:`load_wav` on the file's bytes ``raw``."""
     if len(raw) < 12 or raw[0:4] != b"RIFF" or raw[8:12] != b"WAVE":
         raise err.WavOpenError(f"{path} is not a RIFF/WAVE file")
 
@@ -331,10 +352,10 @@ class PcmStreamReader:
         return arr.astype(np.float32)
 
 
-def _mmap_pcm16_mono(path) -> tuple[np.ndarray, int] | None:
+def _mmap_pcm16_mono(path) -> tuple[np.ndarray, int, int] | None:
     """Zero-copy load: an ``np.memmap`` over the data chunk of a mono
     16-bit PCM WAV, reading only the chunk headers.  Returns
-    ``(int16 view, sample_rate)``, or None when the file needs the
+    ``(int16 view, sample_rate, file size)``, or None when the file needs the
     general loader (other formats, multichannel, malformed headers).
     Chunk semantics match :func:`load_wav`: last fmt/data chunk wins,
     and a data size lying past EOF is clamped to what exists."""
@@ -376,12 +397,12 @@ def _mmap_pcm16_mono(path) -> tuple[np.ndarray, int] | None:
     if n == 0:
         return None
     try:
-        return np.memmap(path, dtype="<i2", mode="r", offset=o, shape=(n,)), sample_rate
+        return np.memmap(path, dtype="<i2", mode="r", offset=o, shape=(n,)), sample_rate, size_total
     except (OSError, ValueError):
         return None
 
 
-def load_device_ready(path, use_mmap: bool = True) -> tuple[np.ndarray, Rate]:
+def load_device_ready(path, use_mmap: bool = True, info: dict | None = None) -> tuple[np.ndarray, Rate]:
     """Like :func:`load`, but 16-bit PCM stays int16 so the decoder can
     ship half the bytes to the card and convert there (exactly equal to
     the reference's f32-of-raw-int values; the resample kernel reads
@@ -389,13 +410,17 @@ def load_device_ready(path, use_mmap: bool = True) -> tuple[np.ndarray, Rate]:
     file is not even read: the returned array is a read-only
     ``np.memmap`` over its data chunk.  Without it the samples are read
     into RAM, and any 16-bit integer WAV still comes back as int16
-    (``noaa_apt_tpu/io/wav.py:382-402``)."""
+    (``noaa_apt_tpu/io/wav.py:382-402``).  ``info``, if given, receives
+    the file's counters: its size, channels, bits and sample format
+    (from the memmap's header, or :func:`load_wav`'s spec)."""
     if use_mmap:
         m = _mmap_pcm16_mono(path)
         if m is not None:
-            arr, sr = m
+            arr, sr, n_bytes = m
+            if info is not None:
+                info.update(_counters(n_bytes, WavSpec(1, sr, 16, "int")))
             return arr, Rate(sr)
-    signal, spec = load_wav(path, raw_int16=True)
+    signal, spec = load_wav(path, raw_int16=True, info=info)
     if signal.dtype != np.int16 and spec.sample_format == "int" and spec.bits_per_sample == 16:
         signal = signal.astype(np.int16)  # exact: values are in i16 range
     return signal, Rate(spec.sample_rate)
