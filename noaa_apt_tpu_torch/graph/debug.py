@@ -135,7 +135,8 @@ def decode_with_steps(context: Context, profile: DecodeProfile, signal, input_ra
 
     context.step_signal("input", signal, input_rate)
     context.status(0.1, f"Resampling to {work_rate.get_hz()}")
-    x = torch.from_numpy(np.ascontiguousarray(signal, np.float32)).to(dev)
+    # A copy where the samples are a read-only or unaligned map (io/wav.load_device_ready).
+    x = torch.from_numpy(np.require(signal, np.float32, ["C", "A", "W"])).to(dev)
     x = resample_with_filter(context, x, input_rate, work_rate, _ingest_filter(profile, input_rate))
     n = int(x.shape[0])
     if n < 10 * spr:

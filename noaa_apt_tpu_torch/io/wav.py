@@ -102,12 +102,15 @@ def load_wav(path, raw_int16: bool = False, info: dict | None = None) -> tuple[n
     return signal, spec
 
 
-COUNTERS = ("wav_bytes", "wav_channels", "wav_bits", "wav_format")
+COUNTERS = ("wav_bytes", "wav_channels", "wav_bits", "wav_format", "wav_mapped")
 
 
 def _counters(n_bytes: int, spec: WavSpec) -> dict:
-    """The counters of a loaded WAV that the CLI's report carries (``COUNTERS``)."""
-    return dict(zip(COUNTERS, (n_bytes, spec.channels, spec.bits_per_sample, spec.sample_format)))
+    """The counters of a loaded WAV that the CLI's report carries
+    (``COUNTERS``), but ``wav_mapped``, which :func:`load_device_ready`
+    sets."""
+    return {"wav_bytes": n_bytes, "wav_channels": spec.channels, "wav_bits": spec.bits_per_sample,
+            "wav_format": spec.sample_format}
 
 
 def _parse_wav(path: Path, raw: bytes, raw_int16: bool) -> tuple[np.ndarray, WavSpec]:
@@ -352,13 +355,20 @@ class PcmStreamReader:
         return arr.astype(np.float32)
 
 
-def _mmap_pcm16_mono(path) -> tuple[np.ndarray, int, int] | None:
-    """Zero-copy load: an ``np.memmap`` over the data chunk of a mono
-    16-bit PCM WAV, reading only the chunk headers.  Returns
-    ``(int16 view, sample_rate, file size)``, or None when the file needs the
-    general loader (other formats, multichannel, malformed headers).
-    Chunk semantics match :func:`load_wav`: last fmt/data chunk wins,
-    and a data size lying past EOF is clamped to what exists."""
+# (format tag, bits) -> the dtype numpy can view the samples as, where they lie.
+_VIEWABLE = {(_FMT_PCM, 16): "<i2", (_FMT_FLOAT, 32): "<f4"}
+
+
+def _viewable_data(path) -> tuple[str, int, int, WavSpec, int] | None:
+    """The header walk of :func:`load_device_ready`'s map, reading only the
+    chunk headers: ``(dtype, data chunk offset, whole frames, spec, file
+    size)`` of a WAV whose samples numpy can view as they lie (16-bit PCM
+    or 32-bit IEEE float, by format tag or EXTENSIBLE sub-format, one
+    channel or more).  None where the file needs the general loader
+    (other formats, no whole frame, malformed headers).  Chunk semantics
+    match :func:`load_wav`: last fmt/data chunk wins, a data size lying
+    past EOF is clamped to what exists, and a trailing partial frame is
+    dropped."""
     path = Path(path)
     try:
         size_total = path.stat().st_size
@@ -390,37 +400,67 @@ def _mmap_pcm16_mono(path) -> tuple[np.ndarray, int, int] | None:
     )
     if audio_fmt == _FMT_EXTENSIBLE and len(fmt_body) >= 26:
         (audio_fmt,) = struct.unpack_from("<H", fmt_body, 24)
-    if audio_fmt != _FMT_PCM or channels != 1 or bits != 16 or sample_rate <= 0:
+    dtype = _VIEWABLE.get((audio_fmt, bits))
+    if dtype is None or channels < 1 or sample_rate <= 0:
         return None
     o, n_bytes = data_span
-    n = n_bytes // 2
-    if n == 0:
+    frames = n_bytes // (channels * bits // 8)
+    if frames == 0:
         return None
-    try:
-        return np.memmap(path, dtype="<i2", mode="r", offset=o, shape=(n,)), sample_rate, size_total
-    except (OSError, ValueError):
-        return None
+    spec = WavSpec(channels, sample_rate, bits, "int" if audio_fmt == _FMT_PCM else "float")
+    return dtype, o, frames, spec, size_total
+
+
+def _map_channel0(path, dtype: str, offset: int, frames: int, channels: int) -> np.ndarray:
+    """Channel 0 of the data chunk as a read-only ``np.memmap``: the map
+    itself for mono 16-bit PCM, else column 0 of the ``(frames,
+    channels)`` map (strided for more than one channel).  A float file's
+    or a multichannel file's map is the span
+    ``apt.wav.read`` and its channel-0 view ``apt.wav.convert``; a mono
+    16-bit map enters no span."""
+    if channels == 1 and dtype == "<i2":
+        return np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=(frames,))
+    with span("apt.wav.read"):
+        m = np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=(frames, channels))
+    with span("apt.wav.convert"):
+        return m[:, 0]
 
 
 def load_device_ready(path, use_mmap: bool = True, info: dict | None = None) -> tuple[np.ndarray, Rate]:
     """Like :func:`load`, but 16-bit PCM stays int16 so the decoder can
     ship half the bytes to the card and convert there (exactly equal to
     the reference's f32-of-raw-int values; the resample kernel reads
-    i16 directly).  With ``use_mmap`` (the default) a mono 16-bit PCM
-    file is not even read: the returned array is a read-only
-    ``np.memmap`` over its data chunk.  Without it the samples are read
-    into RAM, and any 16-bit integer WAV still comes back as int16
+    i16 directly).  With ``use_mmap`` (the default) a 16-bit PCM or
+    32-bit float file, of any channel count, is not read here: the
+    returned array is channel 0 of a read-only ``np.memmap`` over its
+    data chunk (strided for more than one channel), and the one host copy
+    of its samples is the decoder's.  Other formats, and every file
+    without ``use_mmap``, are read into RAM by :func:`load_wav`, and any
+    16-bit integer WAV still comes back as int16
     (``noaa_apt_tpu/io/wav.py:382-402``).  ``info``, if given, receives
     the file's counters: its size, channels, bits and sample format
-    (from the memmap's header, or :func:`load_wav`'s spec)."""
+    (from the map's header, or :func:`load_wav`'s spec), and
+    ``wav_mapped``, whether the samples are a view of the map."""
     if use_mmap:
-        m = _mmap_pcm16_mono(path)
-        if m is not None:
-            arr, sr, n_bytes = m
-            if info is not None:
-                info.update(_counters(n_bytes, WavSpec(1, sr, 16, "int")))
-            return arr, Rate(sr)
+        v = _viewable_data(path)
+        if v is not None:
+            dtype, offset, frames, spec, n_bytes = v
+            try:
+                arr = _map_channel0(path, dtype, offset, frames, spec.channels)
+            except (OSError, ValueError):
+                pass  # the general loader reads the file, or raises its own error
+            else:
+                if spec.channels != 1:
+                    log.warning(
+                        "WAV file has %d channels (probably stereo), processing only the first one",
+                        spec.channels,
+                    )
+                if info is not None:
+                    info.update(_counters(n_bytes, spec), wav_mapped=True)
+                return arr, Rate(spec.sample_rate)
     signal, spec = load_wav(path, raw_int16=True, info=info)
+    if info is not None:
+        info["wav_mapped"] = False
     if signal.dtype != np.int16 and spec.sample_format == "int" and spec.bits_per_sample == 16:
         signal = signal.astype(np.int16)  # exact: values are in i16 range
     return signal, Rate(spec.sample_rate)

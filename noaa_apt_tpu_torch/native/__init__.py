@@ -107,7 +107,8 @@ def fast_resample_native(x: np.ndarray, l: int, m: int, coeff: np.ndarray, out_l
     the reference's per-output sequential accumulation; ``exact=False``:
     the same taps with a vectorized reduction (the quantized modes)."""
     lib = get_lib()
-    x = np.ascontiguousarray(x, dtype=np.float32)
+    # Aligned too: a float WAV's mapped samples may start 2 bytes off a float.
+    x = np.require(x, np.float32, ["C", "A"])
     coeff = np.ascontiguousarray(coeff, dtype=np.float32)
     out = np.empty(out_len, dtype=np.float32)
     f32p = ctypes.POINTER(ctypes.c_float)

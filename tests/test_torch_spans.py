@@ -103,7 +103,7 @@ def test_without_a_profiler_no_record_function_and_the_report_as_before(passes, 
     assert recorder == []
     assert set(report) == {"ingest_s", "payload_bytes", "load_s", "decode_s", "finish_s", "save_s", "wall_s",
                            "rows", "sync_positions", "stage_ms", "telemetry_ms", "png_strips", "wav_bytes",
-                           "wav_channels", "wav_bits", "wav_format"}
+                           "wav_channels", "wav_bits", "wav_format", "wav_mapped"}
     steps = [report[key] for key, _ in STEPS]
     assert all(s > 0 for s in steps) and sum(steps) <= report["wall_s"] <= sum(steps) + 0.05
     # The decoder's stage clock runs inside the decode step.
