@@ -83,7 +83,7 @@ from .geo.states import prefetch_states_async
 from .graph import resample_tool
 from .graph.debug import decode_with_steps
 from .graph.decode import Decoder, DecodeResult
-from .graph.process import finish_image, process
+from .graph.process import device_levels, finish_image, process
 from .io import config as cfg
 from .io import misc, png, wav
 from .io.context import Context
@@ -398,10 +398,9 @@ def main(argv=None, report: dict | None = None) -> int:
     where the fused telemetry path did not run), the host ingest's seconds
     (``ingest_s``, None for ``--ingest device``) and the bytes of the
     signal or payload copied to the device (``payload_bytes``), the
-    PNG's IDAT strips (``png_strips``, 1 where it is one stream) and the
-    input WAV's size in bytes, channels, bits a sample and sample format
-    (``wav_bytes``, ``wav_channels``, ``wav_bits``, ``wav_format``: "int"
-    or "float"; None for a ``.npy`` input).  A traced
+    PNG's IDAT strips (``png_strips``, 1 where it is one stream), the
+    input WAV's size in bytes (``wav_bytes``) and whether its samples are
+    a view of its map (``wav_mapped``; both None for a ``.npy`` input).  A traced
     run adds the trace's path (``trace``).  Each step's seconds are those of
     its span (``apt.load``, ``apt.decode``, ``apt.finish``, ``apt.save``;
     :mod:`spans`)."""
@@ -515,7 +514,6 @@ def _run(args, report: dict | None) -> int:
 
     sync_pos = None
     npy = str(args.input_filename).endswith(".npy")
-    wav_info: dict = {}
     try:
         with span("apt.load") as load:
             color = _color_settings(args, settings)
@@ -523,7 +521,7 @@ def _run(args, report: dict | None) -> int:
                 # Re-process a previously decoded raw signal (see --raw-out).
                 raw = np.load(args.input_filename).astype(np.float32)
             else:
-                signal, rate = wav.load_device_ready(args.input_filename, info=wav_info)
+                signal, rate = wav.load_device_ready(args.input_filename)
         # Each branch decodes, and leaves the finish stage's call in ``finish``.
         with span("apt.decode") as decode:
             steps = settings.export_wav or settings.export_resample_filtered
@@ -553,14 +551,7 @@ def _run(args, report: dict | None) -> int:
                                    orbit, context)
             elif args.sync and not args.raw_out and not (distributed and args.ingest != "device"):
                 # Fused path: the same levels table as noaa_apt_tpu/cli.py:489-496.
-                if contrast.kind == ContrastKind.PERCENT:
-                    levels = ("percent", contrast.percent)
-                elif contrast.kind == ContrastKind.HISTOGRAM and color is not None:
-                    levels = ("percent", 0.98)
-                elif contrast.kind == ContrastKind.TELEMETRY:
-                    levels = ("telemetry", 0.98)
-                else:
-                    levels = ("minmax", 0.98)
+                levels = device_levels(contrast, color)
                 context.status(0.1, f"Decoding (fused, {args.ingest} ingest)")
                 payload = None
                 if args.ingest != "device":
@@ -601,7 +592,8 @@ def _run(args, report: dict | None) -> int:
             "finish_s": finished.seconds, "save_s": save.seconds, "wall_s": save.end - load.start,
             "rows": int(img.shape[0]), "sync_positions": sync_pos, "stage_ms": stage_ms,
             "telemetry_ms": stage_ms.get("telemetry"), "png_strips": png.png_strips(img),
-            **{k: wav_info.get(k) for k in wav.COUNTERS},
+            "wav_bytes": None if npy else Path(args.input_filename).stat().st_size,
+            "wav_mapped": None if npy else isinstance(signal, np.memmap),
         })
     return 0
 

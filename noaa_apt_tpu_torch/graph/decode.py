@@ -1036,7 +1036,7 @@ class Decoder:
         return cls([], errors or None)
 
     def decode_render_batch(self, payloads: list, contrast_kind: str = "percent", pct: float = 0.98,
-                            fetch: bool = True, pad_to: int | None = None):
+                            fetch: bool = True):
         """Batched work-domain render (``noaa_apt_tpu/graph/decode.py:1342-1502``):
         K4 (sealed buffers) and K2 per member, K3 once over the batch, one
         grouped fetch.  Every member equals its unbatched
@@ -1045,8 +1045,7 @@ class Decoder:
         All payloads must share ``pad_bucket(work_true)``, quantization and
         dtype (or, packed, one ``(w_pad, w_lo, n_esc_pad)``); packed and
         plain payloads do not mix.  A too-short member, or one with fewer
-        than 5 sync frames, becomes an error entry.  ``pad_to`` is accepted
-        and not computed: eager torch has no jit variants to pin."""
+        than 5 sync frames, becomes an error entry."""
         spr = self.samples_per_work_row
         errors = {b: err.InternalError(_TOO_SHORT)
                   for b, p in enumerate(payloads) if p.work_true < 10 * spr}
@@ -1081,16 +1080,14 @@ class Decoder:
         return pending.get() if fetch else pending
 
     def decode_render_input_batch(self, signals: list, n_trues: list, input_rate: Rate,
-                                  contrast_kind: str = "percent", pct: float = 0.98, fetch: bool = True,
-                                  pad_to: int | None = None):
+                                  contrast_kind: str = "percent", pct: float = 0.98, fetch: bool = True):
         """Batched raw-recording render (``noaa_apt_tpu/graph/decode.py:1504-1619``):
         K1 and K2 per member, K3 once over the batch, one grouped fetch;
         every member equals its unbatched :meth:`decode_render_input`
         byte for byte.  Pre-uploaded tensors must all be padded to
         ``pad_bucket(max(n_trues))`` and share a dtype; host arrays that
         are not all int16 go as float32.  A too-short member, or one with
-        fewer than 5 sync frames, becomes an error entry.  ``pad_to`` is
-        accepted and not computed."""
+        fewer than 5 sync frames, becomes an error entry."""
         if len(signals) == 0:
             return self._empty_batch(contrast_kind, None, fetch)
         n_pad = pad_bucket(max(n_trues))

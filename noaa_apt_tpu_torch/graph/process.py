@@ -25,6 +25,21 @@ from .decode import Decoder, DecodeResult
 log = logging.getLogger(__name__)
 
 
+def device_levels(contrast: Contrast, color=None) -> tuple[str, float]:
+    """The device levels ``(kind, pct)`` that render ``contrast``, with
+    or without ``color`` (``noaa_apt.rs:144-176``): the percent scan for
+    percent contrast and for a colorized histogram run (the reference's
+    98 % pre-stretch; histogram equalization runs on the u8 image), the
+    telemetry wedges for telemetry, else min/max."""
+    if contrast.kind == ContrastKind.PERCENT:
+        return "percent", contrast.percent
+    if contrast.kind == ContrastKind.HISTOGRAM and color is not None:
+        return "percent", 0.98
+    if contrast.kind == ContrastKind.TELEMETRY:
+        return "telemetry", 0.98
+    return "minmax", 0.98
+
+
 def process(signal, contrast_adjustment: Contrast, rotate: Rotate, color=None,
             orbit: OrbitSettings | None = None, context=None) -> np.ndarray:
     """Decoded signal -> RGBA uint8 image [H, 2080, 4].
@@ -41,20 +56,7 @@ def process(signal, contrast_adjustment: Contrast, rotate: Rotate, color=None,
         if context is not None:
             context.status(0.1, "Adjusting contrast (on device)")
             context.status(0.3, "Generating image")
-        if kind == ContrastKind.HISTOGRAM:
-            # Histogram equalization happens on the u8 image below; the
-            # levels here are min/max, or the reference's 98% pre-stretch
-            # for colorized runs (noaa_apt.rs:167-176).
-            if color is not None:
-                gray = Decoder.render_u8(result, "percent", 0.98)
-            else:
-                gray = Decoder.render_u8(result, "minmax")
-        else:
-            gray = Decoder.render_u8(
-                result,
-                "percent" if kind == ContrastKind.PERCENT else "minmax",
-                contrast_adjustment.percent,
-            )
+        gray = Decoder.render_u8(result, *device_levels(contrast_adjustment, color))
     elif result is not None:
         if context is not None:
             context.status(0.1, "Adjusting contrast from telemetry")

@@ -12,14 +12,16 @@ Behavioral contract: reference ``src/wav.rs`` (via the hound crate):
   as the data chunk actually contains.
 
 Implemented directly over the RIFF layout with NumPy (the stdlib
-``wave`` module cannot read float WAVs).  A copy of
+``wave`` module cannot read float WAVs).  The port of
 ``noaa_apt_tpu/io/wav.py``, the live-stream reader (:class:`PcmStreamReader`,
-``--stream``) included.
+``--stream``) included; both file loaders run one chunk walk and one
+sample decode (:func:`_load`).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import struct
 from dataclasses import dataclass
 from pathlib import Path
@@ -45,93 +47,67 @@ class WavSpec:
     sample_format: str  # "int" | "float"
 
 
-def _decode_pcm(data: bytes, audio_fmt: int, bits: int) -> tuple[str, np.ndarray]:
+# (format tag, bits) -> the dtype numpy views the samples as, where they lie.
+_VIEWS = {(_FMT_PCM, 16): "<i2", (_FMT_PCM, 32): "<i4", (_FMT_FLOAT, 32): "<f4", (_FMT_FLOAT, 64): "<f8"}
+# The formats the decoder takes as they lie, which load_device_ready maps.
+_MAPPED = ((_FMT_PCM, 16), (_FMT_FLOAT, 32))
+
+
+def _decode_pcm(data, audio_fmt: int, bits: int) -> tuple[str, np.ndarray]:
     """Raw sample bytes -> ("int"|"float", sample array); trailing
-    partial samples are dropped (hound tolerance, noaa_apt.rs:114-130)."""
-    if audio_fmt == _FMT_PCM:
-        sample_format = "int"
-        if bits == 16:
-            arr = np.frombuffer(data[: len(data) // 2 * 2], dtype="<i2")
-        elif bits == 32:
-            arr = np.frombuffer(data[: len(data) // 4 * 4], dtype="<i4")
-        elif bits == 8:
-            # 8-bit WAV is unsigned with 128 offset; hound exposes it as
-            # a signed value centered at 0.
-            arr = np.frombuffer(data, dtype=np.uint8).astype(np.int16) - 128
-        elif bits == 24:
-            b = np.frombuffer(data[: len(data) // 3 * 3], dtype=np.uint8).reshape(-1, 3)
-            arr = (
-                b[:, 0].astype(np.int32)
-                | (b[:, 1].astype(np.int32) << 8)
-                | (b[:, 2].astype(np.int32) << 16)
-            )
-            arr = (arr << 8) >> 8  # sign-extend
-        else:
-            raise err.WavOpenError(f"Unsupported PCM bit depth: {bits}")
-    elif audio_fmt == _FMT_FLOAT:
-        sample_format = "float"
-        if bits == 32:
-            arr = np.frombuffer(data[: len(data) // 4 * 4], dtype="<f4")
-        elif bits == 64:
-            arr = np.frombuffer(data[: len(data) // 8 * 8], dtype="<f8")
-        else:
-            raise err.WavOpenError(f"Unsupported float bit depth: {bits}")
-    else:
+    partial samples are dropped (hound tolerance, noaa_apt.rs:114-130).
+    ``data`` is ``bytes`` or a uint8 array; where numpy can view the
+    samples as they lie, the result is a view of it, so a map of the data
+    chunk stays an ``np.memmap``."""
+    if audio_fmt not in (_FMT_PCM, _FMT_FLOAT):
         raise err.WavOpenError(f"Unsupported WAV format tag: {audio_fmt}")
+    sample_format = "int" if audio_fmt == _FMT_PCM else "float"
+    raw = data if isinstance(data, np.ndarray) else np.frombuffer(data, np.uint8)
+    dtype = _VIEWS.get((audio_fmt, bits))
+    if dtype is not None:
+        arr = raw[: len(raw) // (bits // 8) * (bits // 8)].view(dtype)
+    elif (audio_fmt, bits) == (_FMT_PCM, 8):
+        # 8-bit WAV is unsigned with 128 offset; hound exposes it as
+        # a signed value centered at 0.
+        arr = raw.astype(np.int16) - 128
+    elif (audio_fmt, bits) == (_FMT_PCM, 24):
+        b = raw[: len(raw) // 3 * 3].reshape(-1, 3).astype(np.int32)
+        arr = ((b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)) << 8) >> 8  # sign-extend
+    else:
+        raise err.WavOpenError(f"Unsupported {'PCM' if sample_format == 'int' else 'float'} bit depth: {bits}")
     return sample_format, arr
 
 
-def load_wav(path, raw_int16: bool = False, info: dict | None = None) -> tuple[np.ndarray, WavSpec]:
-    """Load a WAV file; returns (float32 channel-0 samples, spec).
-
-    ``raw_int16``: return mono 16-bit PCM as the raw int16 buffer
-    (values identical after the usual exact f32 conversion).  ``info``,
-    if given, receives the file's counters (:func:`_counters`).  The
-    file's read is the span ``apt.wav.read``; the chunk walk, the
-    channel-0 take and the float32 copy are ``apt.wav.convert``."""
-    path = Path(path)
-    try:
-        with span("apt.wav.read"):
-            raw = path.read_bytes()
-    except OSError as e:
-        raise err.WavOpenError(str(e)) from e
-    with span("apt.wav.convert"):
-        signal, spec = _parse_wav(path, raw, raw_int16)
-    if info is not None:
-        info.update(_counters(len(raw), spec))
-    return signal, spec
+def _parse_fmt(body: bytes) -> tuple[int, WavSpec]:
+    """A fmt chunk's body (16 bytes or more) -> (format tag, or the
+    EXTENSIBLE sub-format where it has one; spec)."""
+    (audio_fmt, channels, sample_rate, _brate, _align, bits) = struct.unpack_from("<HHIIHH", body, 0)
+    if audio_fmt == _FMT_EXTENSIBLE and len(body) >= 26:
+        (audio_fmt,) = struct.unpack_from("<H", body, 24)
+    return audio_fmt, WavSpec(channels, sample_rate, bits, "float" if audio_fmt == _FMT_FLOAT else "int")
 
 
-COUNTERS = ("wav_bytes", "wav_channels", "wav_bits", "wav_format", "wav_mapped")
-
-
-def _counters(n_bytes: int, spec: WavSpec) -> dict:
-    """The counters of a loaded WAV that the CLI's report carries
-    (``COUNTERS``), but ``wav_mapped``, which :func:`load_device_ready`
-    sets."""
-    return {"wav_bytes": n_bytes, "wav_channels": spec.channels, "wav_bits": spec.bits_per_sample,
-            "wav_format": spec.sample_format}
-
-
-def _parse_wav(path: Path, raw: bytes, raw_int16: bool) -> tuple[np.ndarray, WavSpec]:
-    """:func:`load_wav` on the file's bytes ``raw``."""
-    if len(raw) < 12 or raw[0:4] != b"RIFF" or raw[8:12] != b"WAVE":
+def _walk(f, path: Path) -> tuple[int, WavSpec, int, int]:
+    """The RIFF chunk walk over the open file ``f``, reading only chunk
+    headers and the fmt chunk: ``(format tag, spec, data chunk offset,
+    data bytes)``.  The last fmt and the last data chunk win, and a data
+    size lying past EOF is clamped to what exists."""
+    size_total = os.fstat(f.fileno()).st_size
+    head = f.read(12)
+    if len(head) < 12 or head[0:4] != b"RIFF" or head[8:12] != b"WAVE":
         raise err.WavOpenError(f"{path} is not a RIFF/WAVE file")
-
-    fmt = None
-    data = None
+    fmt = data = None
     off = 12
-    while off + 8 <= len(raw):
-        cid = raw[off : off + 4]
-        (size,) = struct.unpack_from("<I", raw, off + 4)
-        body = raw[off + 8 : off + 8 + size]
+    while off + 8 <= size_total:
+        f.seek(off)
+        cid, size = struct.unpack("<4sI", f.read(8))
         if cid == b"fmt ":
-            fmt = body
+            fmt = f.read(min(size, 26))
         elif cid == b"data":
             # Tolerate truncated files whose header claims more data
             # than exists (the hound issue worked around at
             # noaa_apt.rs:114-130): take what is actually present.
-            data = raw[off + 8 : off + 8 + size] if off + 8 + size <= len(raw) else raw[off + 8 :]
+            data = (off + 8, min(size, size_total - off - 8))
         off += 8 + size + (size & 1)
     if fmt is None or data is None:
         raise err.WavOpenError(f"{path}: missing fmt/data chunk")
@@ -139,28 +115,54 @@ def _parse_wav(path: Path, raw: bytes, raw_int16: bool) -> tuple[np.ndarray, Wav
         # A truncated fmt chunk would otherwise escape as a raw
         # struct.error instead of the documented open error.
         raise err.WavOpenError(f"{path}: fmt chunk too short ({len(fmt)} bytes)")
+    return (*_parse_fmt(fmt), *data)
 
-    (audio_fmt, channels, sample_rate, _brate, _align, bits) = struct.unpack_from(
-        "<HHIIHH", fmt, 0
-    )
-    if audio_fmt == _FMT_EXTENSIBLE and len(fmt) >= 26:
-        (audio_fmt,) = struct.unpack_from("<H", fmt, 24)
 
-    sample_format, arr = _decode_pcm(data, audio_fmt, bits)
-
-    if channels < 1:
-        raise err.WavOpenError("WAV has zero channels")
-    if channels != 1:
+def _load(path, raw_int16: bool, use_mmap: bool) -> tuple[np.ndarray, WavSpec]:
+    """Both loaders' pipeline.  Under the span ``apt.wav.read``: the chunk
+    walk, then the data chunk, mapped read-only (``use_mmap``, for 16-bit
+    PCM and 32-bit float) or read.  Under ``apt.wav.convert``:
+    :func:`_decode_pcm`, channel 0, and a float32 copy, but for 16-bit PCM
+    with ``raw_int16`` and for a map, which stay views."""
+    path = Path(path)
+    try:
+        with span("apt.wav.read"), open(path, "rb") as f:
+            audio_fmt, spec, offset, n_bytes = _walk(f, path)
+            data = None
+            if (use_mmap and (audio_fmt, spec.bits_per_sample) in _MAPPED and spec.sample_rate > 0
+                    and n_bytes >= spec.channels * spec.bits_per_sample // 8 > 0):
+                try:
+                    data = np.memmap(f, np.uint8, mode="r", offset=offset, shape=(n_bytes,))
+                except (OSError, ValueError):
+                    pass  # read below
+            if data is None:
+                f.seek(offset)
+                data = f.read(n_bytes)
+    except OSError as e:
+        raise err.WavOpenError(str(e)) from e
+    with span("apt.wav.convert"):
+        sample_format, arr = _decode_pcm(data, audio_fmt, spec.bits_per_sample)
+        if spec.channels < 1:
+            raise err.WavOpenError("WAV has zero channels")
+        arr = arr[: len(arr) // spec.channels * spec.channels : spec.channels]
+        if not (raw_int16 and sample_format == "int" and spec.bits_per_sample == 16):
+            arr = arr.astype(np.float32, copy=not isinstance(data, np.memmap))
+    if spec.channels != 1:
         log.warning(
             "WAV file has %d channels (probably stereo), processing only the first one",
-            channels,
+            spec.channels,
         )
-        arr = arr[: len(arr) // channels * channels : channels]
+    return arr, spec
 
-    spec = WavSpec(channels, sample_rate, bits, sample_format)
-    if raw_int16 and arr.dtype == np.int16 and sample_format == "int" and bits == 16:
-        return arr, spec
-    return arr.astype(np.float32), spec
+
+def load_wav(path, raw_int16: bool = False) -> tuple[np.ndarray, WavSpec]:
+    """Load a WAV file; returns (float32 channel-0 samples, spec).
+
+    ``raw_int16``: return 16-bit PCM as the raw int16 buffer (values
+    identical after the usual exact f32 conversion).  The chunk walk and
+    the read of the data chunk are the span ``apt.wav.read``; the decode,
+    the channel-0 take and the float32 copy are ``apt.wav.convert``."""
+    return _load(path, raw_int16, use_mmap=False)
 
 
 def write_wav(path, signal: np.ndarray, spec: WavSpec) -> None:
@@ -267,9 +269,7 @@ class PcmStreamReader:
                 "raw PCM stream needs an explicit sample rate (--stream-rate)"
             )
         self._audio_fmt = _FMT_PCM if fmt == "s16" else _FMT_FLOAT
-        self._bits = 16 if fmt == "s16" else 32
-        self._channels = 1
-        self.spec = WavSpec(1, int(rate), self._bits, "int" if fmt == "s16" else "float")
+        self.spec = WavSpec(1, int(rate), 16 if fmt == "s16" else 32, "int" if fmt == "s16" else "float")
 
     def _read_exact(self, n: int) -> bytes:
         """Up to n bytes, short only at EOF (pipes may return less per read)."""
@@ -305,25 +305,16 @@ class PcmStreamReader:
                 fmt_body = body[:size]
         if fmt_body is None or len(fmt_body) < 16:
             raise err.WavOpenError("WAV stream: missing or short fmt chunk before data")
-        (audio_fmt, channels, sample_rate, _br, _ba, bits) = struct.unpack_from(
-            "<HHIIHH", fmt_body, 0
-        )
-        if audio_fmt == _FMT_EXTENSIBLE and len(fmt_body) >= 26:
-            (audio_fmt,) = struct.unpack_from("<H", fmt_body, 24)
-        if channels < 1:
+        self._audio_fmt, self.spec = _parse_fmt(fmt_body)
+        if self.spec.channels < 1:
             raise err.WavOpenError("WAV has zero channels")
-        if channels != 1:
+        if self.spec.channels != 1:
             log.warning(
                 "WAV stream has %d channels (probably stereo), processing only the first one",
-                channels,
+                self.spec.channels,
             )
         # Validate format support now, not at the first read.
-        _decode_pcm(b"", audio_fmt, bits)
-        self._audio_fmt, self._bits, self._channels = audio_fmt, bits, channels
-        self.spec = WavSpec(
-            channels, sample_rate, bits,
-            "float" if audio_fmt == _FMT_FLOAT else "int",
-        )
+        _decode_pcm(b"", self._audio_fmt, self.spec.bits_per_sample)
 
     @property
     def sample_rate(self) -> int:
@@ -332,7 +323,8 @@ class PcmStreamReader:
     def read(self, max_frames: int) -> np.ndarray | None:
         """Next float32 chunk of up to ``max_frames`` mono frames;
         ``None`` at end of stream (or of the declared data chunk)."""
-        frame_bytes = self._channels * (self._bits // 8)
+        channels, bits = self.spec.channels, self.spec.bits_per_sample
+        frame_bytes = channels * (bits // 8)
         want = max_frames * frame_bytes
         if self._data_left is not None:
             want = min(want, self._data_left + len(self._buf))
@@ -349,84 +341,13 @@ class PcmStreamReader:
             self._buf[: n_frames * frame_bytes],
             self._buf[n_frames * frame_bytes :],
         )
-        _, arr = _decode_pcm(take, self._audio_fmt, self._bits)
-        if self._channels != 1:
-            arr = arr[:: self._channels]
+        _, arr = _decode_pcm(take, self._audio_fmt, bits)
+        if channels != 1:
+            arr = arr[::channels]
         return arr.astype(np.float32)
 
 
-# (format tag, bits) -> the dtype numpy can view the samples as, where they lie.
-_VIEWABLE = {(_FMT_PCM, 16): "<i2", (_FMT_FLOAT, 32): "<f4"}
-
-
-def _viewable_data(path) -> tuple[str, int, int, WavSpec, int] | None:
-    """The header walk of :func:`load_device_ready`'s map, reading only the
-    chunk headers: ``(dtype, data chunk offset, whole frames, spec, file
-    size)`` of a WAV whose samples numpy can view as they lie (16-bit PCM
-    or 32-bit IEEE float, by format tag or EXTENSIBLE sub-format, one
-    channel or more).  None where the file needs the general loader
-    (other formats, no whole frame, malformed headers).  Chunk semantics
-    match :func:`load_wav`: last fmt/data chunk wins, a data size lying
-    past EOF is clamped to what exists, and a trailing partial frame is
-    dropped."""
-    path = Path(path)
-    try:
-        size_total = path.stat().st_size
-        with open(path, "rb") as f:
-            head = f.read(12)
-            if len(head) < 12 or head[0:4] != b"RIFF" or head[8:12] != b"WAVE":
-                return None
-            fmt_body = None
-            data_span = None
-            off = 12
-            while off + 8 <= size_total:
-                f.seek(off)
-                hdr = f.read(8)
-                if len(hdr) < 8:
-                    break
-                cid = hdr[0:4]
-                (sz,) = struct.unpack_from("<I", hdr, 4)
-                if cid == b"fmt ":
-                    fmt_body = f.read(min(sz, 64))
-                elif cid == b"data":
-                    data_span = (off + 8, min(sz, size_total - off - 8))
-                off += 8 + sz + (sz & 1)
-    except OSError:
-        return None
-    if fmt_body is None or data_span is None or len(fmt_body) < 16:
-        return None
-    (audio_fmt, channels, sample_rate, _br, _al, bits) = struct.unpack_from(
-        "<HHIIHH", fmt_body, 0
-    )
-    if audio_fmt == _FMT_EXTENSIBLE and len(fmt_body) >= 26:
-        (audio_fmt,) = struct.unpack_from("<H", fmt_body, 24)
-    dtype = _VIEWABLE.get((audio_fmt, bits))
-    if dtype is None or channels < 1 or sample_rate <= 0:
-        return None
-    o, n_bytes = data_span
-    frames = n_bytes // (channels * bits // 8)
-    if frames == 0:
-        return None
-    spec = WavSpec(channels, sample_rate, bits, "int" if audio_fmt == _FMT_PCM else "float")
-    return dtype, o, frames, spec, size_total
-
-
-def _map_channel0(path, dtype: str, offset: int, frames: int, channels: int) -> np.ndarray:
-    """Channel 0 of the data chunk as a read-only ``np.memmap``: the map
-    itself for mono 16-bit PCM, else column 0 of the ``(frames,
-    channels)`` map (strided for more than one channel).  A float file's
-    or a multichannel file's map is the span
-    ``apt.wav.read`` and its channel-0 view ``apt.wav.convert``; a mono
-    16-bit map enters no span."""
-    if channels == 1 and dtype == "<i2":
-        return np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=(frames,))
-    with span("apt.wav.read"):
-        m = np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=(frames, channels))
-    with span("apt.wav.convert"):
-        return m[:, 0]
-
-
-def load_device_ready(path, use_mmap: bool = True, info: dict | None = None) -> tuple[np.ndarray, Rate]:
+def load_device_ready(path, use_mmap: bool = True) -> tuple[np.ndarray, Rate]:
     """Like :func:`load`, but 16-bit PCM stays int16 so the decoder can
     ship half the bytes to the card and convert there (exactly equal to
     the reference's f32-of-raw-int values; the resample kernel reads
@@ -435,32 +356,7 @@ def load_device_ready(path, use_mmap: bool = True, info: dict | None = None) -> 
     returned array is channel 0 of a read-only ``np.memmap`` over its
     data chunk (strided for more than one channel), and the one host copy
     of its samples is the decoder's.  Other formats, and every file
-    without ``use_mmap``, are read into RAM by :func:`load_wav`, and any
-    16-bit integer WAV still comes back as int16
-    (``noaa_apt_tpu/io/wav.py:382-402``).  ``info``, if given, receives
-    the file's counters: its size, channels, bits and sample format
-    (from the map's header, or :func:`load_wav`'s spec), and
-    ``wav_mapped``, whether the samples are a view of the map."""
-    if use_mmap:
-        v = _viewable_data(path)
-        if v is not None:
-            dtype, offset, frames, spec, n_bytes = v
-            try:
-                arr = _map_channel0(path, dtype, offset, frames, spec.channels)
-            except (OSError, ValueError):
-                pass  # the general loader reads the file, or raises its own error
-            else:
-                if spec.channels != 1:
-                    log.warning(
-                        "WAV file has %d channels (probably stereo), processing only the first one",
-                        spec.channels,
-                    )
-                if info is not None:
-                    info.update(_counters(n_bytes, spec), wav_mapped=True)
-                return arr, Rate(spec.sample_rate)
-    signal, spec = load_wav(path, raw_int16=True, info=info)
-    if info is not None:
-        info["wav_mapped"] = False
-    if signal.dtype != np.int16 and spec.sample_format == "int" and spec.bits_per_sample == 16:
-        signal = signal.astype(np.int16)  # exact: values are in i16 range
+    without ``use_mmap``, are read into RAM as :func:`load_wav` reads
+    them (``noaa_apt_tpu/io/wav.py:382-402``)."""
+    signal, spec = _load(path, True, use_mmap)
     return signal, Rate(spec.sample_rate)

@@ -48,7 +48,7 @@ from .core.profiles import STANDARD, DecodeProfile
 from .device import resolve_device
 from .graph.decode import (HOST_INGEST, Decoder, PackedWorkPayload, PendingRender,
                            PendingRenderTelemetry, pad_bucket)
-from .graph.process import finish_image, process
+from .graph.process import device_levels, finish_image, process
 from .io import png, wav
 from .spans import span
 from .types import Contrast, ContrastKind, Rotate
@@ -288,16 +288,7 @@ def decode_fleet(
         k = seen.get(p.stem, 0)
         seen[p.stem] = k + 1
         out_names.append(p.stem if k == 0 else f"{p.stem}_{k}")
-    # Fused render levels, by process()'s rules (noaa_apt.rs:144-176).
-    fused_levels = None
-    if sync and contrast.kind == ContrastKind.PERCENT:
-        fused_levels = ("percent", contrast.percent)
-    elif sync and contrast.kind == ContrastKind.MINMAX:
-        fused_levels = ("minmax", 0.98)
-    elif sync and contrast.kind == ContrastKind.HISTOGRAM:
-        fused_levels = ("percent", 0.98) if color is not None else ("minmax", 0.98)
-    elif sync and contrast.kind == ContrastKind.TELEMETRY:
-        fused_levels = ("telemetry", 0.98)
+    fused_levels = device_levels(contrast, color) if sync else None
 
     if ingest == "host16c" and fused_levels is None:
         # The packed codec decodes only on the fused renders; the unfused
@@ -471,9 +462,7 @@ def decode_fleet(
             with span("apt.fleet.dispatch") as dispatch:
                 for g in group:
                     wait_for(g[4])
-                pend_b = dec.decode_render_batch(
-                    [g[3] for g in group], *fused_levels, fetch=False, pad_to=fleet_batch,
-                )
+                pend_b = dec.decode_render_batch([g[3] for g in group], *fused_levels, fetch=False)
             each = dispatch.seconds / len(group)
             for g in group:
                 g[0].device_s = each

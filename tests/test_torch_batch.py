@@ -124,7 +124,7 @@ def test_render_input_batch_equals_unbatched(monkeypatch, dtype):
         buf = np.zeros(n_pad, dtype)
         buf[: len(s)] = s
         devs.append(torch.from_numpy(buf))
-    again = dec.decode_render_input_batch(devs, trues, Rate(RATE), pad_to=8)
+    again = dec.decode_render_input_batch(devs, trues, Rate(RATE))
     assert isinstance(again[2], err.InternalError)
     for b, (gray, sync_pos) in want.items():
         assert again[b][1] == sync_pos
@@ -207,7 +207,7 @@ def test_deferred_batches_and_empty_batches():
     dec = Decoder(PROFILES["standard"], device="cpu", ingest="host16")
     payloads = [dec.prepare_work(s, Rate(RATE)) for s in _same_bucket_members(_signal(40), 2)]
     got = dec.decode_render_batch(payloads, "minmax")
-    pending = dec.decode_render_batch(payloads, "minmax", fetch=False, pad_to=8)
+    pending = dec.decode_render_batch(payloads, "minmax", fetch=False)
     assert isinstance(pending, PendingRenderBatch)
     for (g, s), (g2, s2) in zip(got, pending.get()):
         assert s == s2

@@ -38,10 +38,10 @@ from noaa_apt_tpu.types import SatName as JSatName
 from noaa_apt_tpu_torch import cli
 from noaa_apt_tpu_torch.core.profiles import PROFILES
 from noaa_apt_tpu_torch.graph.decode import Decoder
-from noaa_apt_tpu_torch.graph.process import finish_image, process
+from noaa_apt_tpu_torch.graph.process import device_levels, finish_image, process
 from noaa_apt_tpu_torch.io import png, wav
 from noaa_apt_tpu_torch.geo import states
-from noaa_apt_tpu_torch.types import (ColorSettings, ContrastKind, MapSettings, OrbitSettings,
+from noaa_apt_tpu_torch.types import (ColorSettings, Contrast, ContrastKind, MapSettings, OrbitSettings,
                                       RefTime, Rotate, SatName)
 
 torch.set_num_threads(1)
@@ -96,6 +96,36 @@ CASES = {
     "no_sync": (["--no-sync"], "percent", False, None),
     "no_sync_histogram": (["--no-sync", "-c", "histogram"], "histogram", False, None),
 }
+
+
+# Each contrast choice's device levels, without and with colour, as the JAX
+# CLI (noaa_apt_tpu/cli.py:489-496) and fleet (noaa_apt_tpu/serve.py:200-208)
+# pick them.
+CONTRASTS = {ContrastKind.PERCENT: Contrast.from_percent(0.9), ContrastKind.MINMAX: Contrast.minmax(),
+             ContrastKind.HISTOGRAM: Contrast.histogram(), ContrastKind.TELEMETRY: Contrast.telemetry()}
+LEVELS = {(ContrastKind.PERCENT, False): ("percent", 0.9), (ContrastKind.PERCENT, True): ("percent", 0.9),
+          (ContrastKind.MINMAX, False): ("minmax", 0.98), (ContrastKind.MINMAX, True): ("minmax", 0.98),
+          (ContrastKind.HISTOGRAM, False): ("minmax", 0.98), (ContrastKind.HISTOGRAM, True): ("percent", 0.98),
+          (ContrastKind.TELEMETRY, False): ("telemetry", 0.98), (ContrastKind.TELEMETRY, True): ("telemetry", 0.98)}
+
+
+@pytest.fixture(scope="module")
+def decoded(pass_wav):
+    x, rate = wav.load_device_ready(pass_wav)
+    return Decoder(PROFILES["standard"], device="cpu").decode(x, rate, sync=True)
+
+
+@pytest.mark.parametrize("colored", [False, True])
+@pytest.mark.parametrize("kind", list(ContrastKind))
+def test_device_levels_of_every_contrast(decoded, kind, colored):
+    """``device_levels`` is the JAX package's table, and ``process`` on a
+    decoded result renders with it (telemetry takes the wedges' levels)."""
+    color = ColorSettings(PALETTE) if colored else None
+    levels = device_levels(CONTRASTS[kind], color)
+    assert levels == LEVELS[kind, colored]
+    if kind != ContrastKind.TELEMETRY:
+        want = finish_image(Decoder.render_u8(decoded, *levels), kind, Rotate.NO, color)
+        np.testing.assert_array_equal(process(decoded, CONTRASTS[kind], Rotate.NO, color), want)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

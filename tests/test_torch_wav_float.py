@@ -13,15 +13,14 @@ as the mono 16-bit twin is: ``load_device_ready`` returns channel 0 as a
 read-only view of an ``np.memmap`` over the data chunk (strided for
 stereo; SDR#'s layout puts the data 2 bytes off a float, so the view is
 unaligned too), with ``load_wav``'s samples and chunk semantics, and the
-counter ``wav_mapped`` says so.  The map of a float or multichannel
-file records ``apt.wav.read`` and its channel-0 view ``apt.wav.convert``
-once each, and the decoder's float32 copy of a float file's samples
-``apt.upload.cast`` once; the twin's map records none of them.  Formats
-numpy cannot view as they lie (8-, 24- and 32-bit int, 64-bit float) are
-read by ``load_wav``, as before.  The CLI's report carries the file's
-size, channels, bits and sample format.  Each file loads as the JAX
-package loads it: the same samples, dtype, rate and spec, with and
-without the memmap.
+report's ``wav_mapped`` says so.  Every map, the twin's too, records
+``apt.wav.read`` and ``apt.wav.convert`` once each, and the decoder's
+float32 copy of a float file's samples ``apt.upload.cast`` once.  Formats
+the decoder does not take as they lie (8-, 24- and 32-bit int, 64-bit
+float) are read as ``load_wav`` reads them, as before.  The CLI's report
+carries the file's size.  Each file loads as the JAX package loads it:
+the same samples, dtype, rate and spec, with and without the memmap, and
+the same open errors.  Both loaders decode through ``_decode_pcm``.
 """
 
 import dataclasses
@@ -35,8 +34,9 @@ import torch
 
 from aptbench.gen import synth
 from aptbench.gen.pool import write_wav
+from noaa_apt_tpu import err as jerr
 from noaa_apt_tpu.io import wav as jwav
-from noaa_apt_tpu_torch import cli, serve, spans
+from noaa_apt_tpu_torch import cli, err, serve, spans
 from noaa_apt_tpu_torch.graph import decode as graph_decode
 from noaa_apt_tpu_torch.io import wav
 
@@ -45,7 +45,7 @@ SECONDS = 20.0
 ARGS = ["-q", "--device", "cpu", "-p", "standard", "-c", "98_percent"]
 KSDATAFORMAT_TAIL = bytes.fromhex("000000001000800000aa00389b71")
 LAYOUTS = ("float_tag3_fact", "float_extensible", "int16_stereo", "float_mono")
-# (channels, bits, format) the report should carry for each layout.
+# (channels, bits, format) of each layout's spec.
 SPECS = {"float_tag3_fact": (2, 32, "float"), "float_extensible": (2, 32, "float"), "int16_stereo": (2, 16, "int"),
          "float_mono": (1, 32, "float"), "twin": (1, 16, "int")}
 
@@ -116,7 +116,7 @@ def runs(tmp_path_factory):
         for name in (*LAYOUTS, "twin"):
             out[name]["path"] = d / f"{name}.wav"
             out[name]["size"] = out[name]["path"].stat().st_size
-        out["ch0"] = ch0
+        out["ch0"], out["ch1"] = ch0, ch1
         yield out
     finally:
         mp.undo()
@@ -143,7 +143,10 @@ def test_wav_spans_once_per_load(runs, layout):
 
 
 def test_memmap_path_enters_no_wav_span(runs):
-    assert wav_spans(runs["twin"]) == [] and wav_spans(runs["other"]) == []
+    """The twin's map, mono 16-bit, enters each ``apt.wav.*`` span once,
+    as every other map does."""
+    for name in ("twin", "other"):
+        assert wav_spans(runs[name]) == ["apt.wav.read", "apt.wav.convert"]
 
 
 @pytest.mark.parametrize("layout", [*LAYOUTS, "twin"])
@@ -159,7 +162,8 @@ def test_upload_cast_span_once_for_a_float_file(runs, layout):
 def test_report_counters_hold_the_files_values(runs, layout):
     rep = runs[layout]["report"]
     assert rep["wav_bytes"] == runs[layout]["size"]
-    assert (rep["wav_channels"], rep["wav_bits"], rep["wav_format"]) == SPECS[layout]
+    spec = wav.load_wav(runs[layout]["path"])[1]
+    assert (spec.channels, spec.bits_per_sample, spec.sample_format) == SPECS[layout]
     assert rep["wav_mapped"] is True
     assert rep["load_s"] > 0
 
@@ -186,29 +190,31 @@ def test_load_wav_equals_the_jax_packages(runs, layout, raw_int16):
 
 
 def test_report_counters_none_for_a_raw_signal(tmp_path, monkeypatch):
-    """A ``.npy`` input loads no WAV: the counters are there, as None."""
+    """A ``.npy`` input loads no WAV: the counters are there, as None; the
+    file's channels, bits and format are not in the report."""
     monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path / "cfg"))
     rng = np.random.default_rng(5)
     np.save(tmp_path / "raw.npy", rng.random(2080 * 12, dtype=np.float32))
     report: dict = {}
     assert cli.main([str(tmp_path / "raw.npy"), "-o", str(tmp_path / "raw.png"), *ARGS], report=report) == 0
-    assert {k: report[k] for k in wav.COUNTERS} == dict.fromkeys(
-        ("wav_bytes", "wav_channels", "wav_bits", "wav_format", "wav_mapped"))
+    assert (report["wav_bytes"], report["wav_mapped"]) == (None, None)
+    assert not {"wav_channels", "wav_bits", "wav_format"} & set(report)
 
 
 @pytest.mark.parametrize("use_mmap", [True, False])
 def test_load_device_ready_counters_match_load_wav(tmp_path, use_mmap):
-    """Both paths of ``load_device_ready`` give the same counters for a
-    mono 16-bit file: the memmap's header agrees with ``load_wav``, and
-    ``wav_mapped`` says which path read it."""
+    """Both paths of ``load_device_ready`` read a mono 16-bit file as
+    ``load_wav`` does: the same samples and rate, as int16, a map only
+    with ``use_mmap``."""
     x = (np.arange(4000) % 200 - 100).astype(np.float32)
-    wav.write_wav(tmp_path / "m.wav", x, wav.WavSpec(1, 11025, 16, "int"))
-    got: dict = {}
-    wav.load_device_ready(tmp_path / "m.wav", use_mmap=use_mmap, info=got)
-    want: dict = {}
-    wav.load_wav(tmp_path / "m.wav", info=want)
-    assert want == {"wav_bytes": 44 + 2 * 4000, "wav_channels": 1, "wav_bits": 16, "wav_format": "int"}
-    assert got == {**want, "wav_mapped": use_mmap}
+    path = tmp_path / "m.wav"
+    wav.write_wav(path, x, wav.WavSpec(1, 11025, 16, "int"))
+    got, rate = wav.load_device_ready(path, use_mmap=use_mmap)
+    want, spec = wav.load_wav(path)
+    assert spec == wav.WavSpec(1, 11025, 16, "int") and rate.get_hz() == 11025
+    assert got.dtype == np.int16 and np.array_equal(got.astype(np.float32), want)
+    assert isinstance(got, np.memmap) is use_mmap
+    assert path.stat().st_size == 44 + 2 * 4000
 
 
 @pytest.mark.parametrize("use_mmap", [True, False])
@@ -216,11 +222,9 @@ def test_load_device_ready_counters_match_load_wav(tmp_path, use_mmap):
 def test_load_device_ready_maps_the_data_chunk(runs, layout, use_mmap):
     """With the memmap, channel 0 is a read-only view of the file's map,
     not a copy (SDR#'s layout: 2 bytes off a float); without it,
-    ``load_wav``'s array.  Either way it holds ``load_wav``'s channel 0,
-    and ``wav_mapped`` says which."""
-    info: dict = {}
-    got, _ = wav.load_device_ready(runs[layout]["path"], use_mmap=use_mmap, info=info)
-    assert info["wav_mapped"] is use_mmap and isinstance(got, np.memmap) is use_mmap
+    ``load_wav``'s array.  Either way it holds ``load_wav``'s channel 0."""
+    got, _ = wav.load_device_ready(runs[layout]["path"], use_mmap=use_mmap)
+    assert isinstance(got, np.memmap) is use_mmap
     if use_mmap:
         assert not got.flags.owndata and not got.flags.writeable
         assert got.flags.c_contiguous == (SPECS[layout][0] == 1)
@@ -283,12 +287,11 @@ def test_mapped_chunk_semantics_are_load_wavs(tmp_path, kind, case):
         frames, other = (frames * np.float32(2.0**-15)).astype(dtype), (other * np.float32(2.0**-15)).astype(dtype)
     path = tmp_path / f"{kind}_{case}.wav"
     path.write_bytes(edge_case(case, tag, channels, bits, frames, other[:1000]))
-    info: dict = {}
-    got, rate = wav.load_device_ready(path, info=info)
-    assert isinstance(got, np.memmap) and info["wav_mapped"] is True and rate.get_hz() == RATE
+    got, rate = wav.load_device_ready(path)
+    assert isinstance(got, np.memmap) and rate.get_hz() == RATE
     want, spec = wav.load_wav(path)
     assert np.array_equal(got, frames[:, 0]) and np.array_equal(got.astype(np.float32), want)
-    assert (info["wav_channels"], info["wav_bits"]) == (spec.channels, spec.bits_per_sample) == (channels, bits)
+    assert (spec.channels, spec.bits_per_sample, spec.sample_rate) == (channels, bits, RATE)
     jgot, jrate = jwav.load_device_ready(path)
     assert jgot.dtype == got.dtype and np.array_equal(jgot, got) and jrate.get_hz() == RATE
 
@@ -316,14 +319,58 @@ def test_formats_numpy_cannot_view_are_read_by_load_wav(tmp_path, fmt, monkeypat
     path.write_bytes(other_format(fmt, frames))
     monkeypatch.setattr(Counted, "names", [])
     monkeypatch.setattr(wav, "span", Counted)
-    info: dict = {}
-    got, rate = wav.load_device_ready(path, info=info)
-    assert not isinstance(got, np.memmap) and info["wav_mapped"] is False and rate.get_hz() == RATE
+    got, rate = wav.load_device_ready(path)
+    assert not isinstance(got, np.memmap) and rate.get_hz() == RATE
     assert Counted.names == ["apt.wav.read", "apt.wav.convert"]
     want, _ = wav.load_wav(path)
     assert got.dtype == np.float32 and np.array_equal(got, want)
     jgot, _ = jwav.load_device_ready(path)
     assert jgot.dtype == got.dtype and np.array_equal(jgot, got)
+
+
+@pytest.mark.parametrize("use_mmap", [True, False])
+@pytest.mark.parametrize("layout", [*LAYOUTS, "twin"])
+def test_a_fault_in_decode_pcm_reaches_channel_0(runs, layout, use_mmap, monkeypatch):
+    """Both loaders, with and without the map, decode through
+    ``_decode_pcm``: where it drops the first sample, channel 0 takes
+    channel 1's samples (stereo) or starts one sample late (mono)."""
+    orig = wav._decode_pcm
+    monkeypatch.setattr(wav, "_decode_pcm", lambda data, fmt, bits: (lambda f, a: (f, a[1:]))(*orig(data, fmt, bits)))
+    got, _ = wav.load_device_ready(runs[layout]["path"], use_mmap=use_mmap)
+    assert isinstance(got, np.memmap) is use_mmap
+    scale = 1.0 if got.dtype == np.int16 else 2.0**-15
+    want = runs["ch0"][1:] if SPECS[layout][0] == 1 else runs["ch1"][: len(got)]
+    assert np.array_equal(got.astype(np.float64), want * scale)
+    assert np.array_equal(wav.load_wav(runs[layout]["path"])[0], got.astype(np.float32))
+
+
+def not_riff(frames: bytes) -> bytes:
+    return b"RIFX" + riff(1, 1, 16, chunk(b"data", frames))[4:]
+
+
+def no_data_chunk(frames: bytes) -> bytes:
+    return riff(1, 1, 16, chunk(b"LIST", frames))
+
+
+def short_fmt(frames: bytes) -> bytes:
+    body = b"WAVE" + chunk(b"fmt ", struct.pack("<HHI", 1, 1, RATE)) + chunk(b"data", frames)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+LOADERS = {"load_wav": wav.load_wav, "mapped": wav.load_device_ready,
+           "unmapped": lambda p: wav.load_device_ready(p, use_mmap=False)}
+
+
+@pytest.mark.parametrize("loader", list(LOADERS))
+@pytest.mark.parametrize("make", [not_riff, no_data_chunk, short_fmt], ids=lambda f: f.__name__)
+def test_open_errors_are_the_jax_packages(tmp_path, make, loader):
+    path = tmp_path / f"{make.__name__}.wav"
+    path.write_bytes(make(np.arange(-500, 500, dtype="<i2").tobytes()))
+    with pytest.raises(jerr.WavOpenError) as want:
+        jwav.load_wav(path)
+    with pytest.raises(err.WavOpenError) as got:
+        LOADERS[loader](path)
+    assert str(got.value) == str(want.value) and str(path) in str(got.value)
 
 
 # --- every path that takes the mapped samples --------------------------------
