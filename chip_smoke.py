@@ -48,13 +48,16 @@ Phases, one JSON line each (``{"phase": ...}``):
    choice (``98_percent``, ``-c telemetry``, ``-c histogram``, ``-F``),
    ``--no-sync``, ``--raw-out`` and then the ``.npy`` re-processed, then
    on 11025 Hz and 24960 Hz (l == 1) passes, then on the 48 kHz pass as
-   a 32-bit float WAV (K1 "block" on float32) and the 11025 Hz pass as a
-   24-bit PCM WAV (K1 "class"), each PNG byte-equal to its int16 run's,
-   with the kernels' launch
+   a 32-bit float WAV and as a stereo one (K1 "block" on float32) and the
+   11025 Hz pass as a 24-bit PCM WAV (K1 "class"), each PNG byte-equal to
+   its int16 run's, with the kernels' launch
    counters set to 0 just before each run and read just after (one
    launch of each kernel per decode; none of K3 without sync, none at
    all for the ``.npy``); the telemetry run checks the channel names
-   that the synthesizer encodes ("2" and "4");
+   that the synthesizer encodes ("2" and "4"); ``upload_ring``: the
+   stereo float and the mono int16 48 kHz WAVs staged twice each
+   through the decoder's pinned ring (``graph/upload.py``), each
+   ``torch.equal`` to the host copy's upload, the second making no ring;
 6. ``map_path`` — the CLI on the 48 kHz pass with the map overlay and
    ``-R auto`` (``-m yes -R auto -s noaa_19 -T <file> -t <time>``: a
    pinned TLE and a NOAA 19 pass over Bolivia and Argentina, the states
@@ -277,19 +280,22 @@ def synth_wav(path: Path, rate: int, rows: int) -> None:
 
 def write_wav_as(path: Path, pcm, rate: int, kind: str) -> None:
     """Mono ``pcm`` (int16 values, host) as a 32-bit IEEE-float WAV
-    (``kind`` "float32": the values unscaled) or a 24-bit PCM WAV ("int24":
-    the same integers): both decode to float32 samples equal to the int16
-    ones, so the decoder runs K1 on float32 input."""
+    (``kind`` "float32": the values unscaled), as a stereo one whose
+    channel 1 holds the values negated ("float32_stereo") or as a 24-bit
+    PCM WAV ("int24": the same integers): each decodes to float32 samples
+    equal to the int16 ones, so the decoder runs K1 on float32 input."""
     import struct
 
     import numpy as np
 
-    v = np.asarray(pcm, np.int32)
+    v, ch = np.asarray(pcm, np.int32), 1
     if kind == "float32":
         data, fmt, bits = v.astype("<f4").tobytes(), 3, 32
+    elif kind == "float32_stereo":
+        data, fmt, bits, ch = np.stack([v, -v], axis=1).astype("<f4").tobytes(), 3, 32, 2
     else:
         data, fmt, bits = (v.astype("<i4").view(np.uint8).reshape(-1, 4)[:, :3]).tobytes(), 1, 24
-    fmt_chunk = struct.pack("<HHIIHH", fmt, 1, rate, rate * bits // 8, bits // 8, bits)
+    fmt_chunk = struct.pack("<HHIIHH", fmt, ch, rate, rate * ch * bits // 8, ch * bits // 8, bits)
     path.write_bytes(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt_chunk) + 8 + len(data)) + b"WAVE"
                      + b"fmt " + struct.pack("<I", len(fmt_chunk)) + fmt_chunk
                      + b"data" + struct.pack("<I", len(data)) + data)
@@ -857,15 +863,76 @@ def main_path_runs(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr:
     emit("npy_vs_raw_out", pixels_differing=int((d > 0).sum()))
     run(wav11, "98_percent", 11025, "class")
     run(wav25, "98_percent", 24960, "block")
-    for src, rate, kind, variant in ((wav48, 48000, "float32", "block"), (wav11, 11025, "int24", "class")):
+    for src, rate, kind, variant in ((wav48, 48000, "float32", "block"), (wav48, 48000, "float32_stereo", "block"),
+                                     (wav11, 11025, "int24", "class")):
         path = tmp / f"pass_{rate}_{kind}.wav"
         write_wav_as(path, wav.load_device_ready(src)[0], rate, kind)
-        run(path, f"98_percent_{kind}_wav", rate, variant)
+        rep = run(path, f"98_percent_{kind}_wav", rate, variant)
         same = (tmp / f"98_percent_{kind}_wav_{rate}.png").read_bytes() == (tmp / f"98_percent_{rate}.png").read_bytes()
         if not same:
             raise AssertionError(f"the {kind} WAV's PNG differs from the int16 WAV's at {rate} Hz")
-        emit("float_wav_vs_int16", rate=rate, wav=kind, k1_variant=variant, png_byte_equal=True)
+        emit("float_wav_vs_int16", rate=rate, wav=kind, k1_variant=variant, png_byte_equal=True,
+             upload_chunks=rep["upload_chunks"])
+    upload_ring_phase(torch, tmp / "pass_48000_float32_stereo.wav", wav48)
     return launches
+
+
+def upload_ring_phase(torch, stereo_f32: Path, mono_i16: Path) -> None:
+    """The decoder's pinned ring on the 10-minute 48 kHz pass as a stereo
+    float WAV and as the mono int16 WAV, each loaded twice as the CLI
+    loads it: the staged upload ``torch.equal`` (float32: bit for bit) to
+    the host copy's, ``torch.from_numpy(np.array(view)).to(device)``, and
+    the second upload of each makes no ring: no pinned allocation.  One
+    line a file: both uploads' ms (each ending in a synchronise) beside
+    the host copy's, the slots filled and the bytes shipped."""
+    from unittest import mock
+
+    import numpy as np
+
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph import upload
+    from noaa_apt_tpu_torch.graph.decode import Decoder
+    from noaa_apt_tpu_torch.io import wav
+
+    dec = Decoder(STANDARD, device="cuda")
+    made = []
+    init = upload.UploadRing.__init__
+
+    def counted(self, *a, **kw):
+        made.append(self)
+        init(self, *a, **kw)
+
+    for name, path in (("stereo_f32", stereo_f32), ("mono_i16", mono_i16)):
+        calls = []
+        for _ in range(2):
+            view = wav.load_device_ready(path)[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = torch.from_numpy(np.array(view)).to(dec.device)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            made.clear()
+            with mock.patch.object(upload.UploadRing, "__init__", counted):
+                t0 = time.perf_counter()
+                got = dec._upload(view, len(view))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            if got.dtype != want.dtype:
+                raise AssertionError(f"{name}: staged upload is {got.dtype}, the host copy's {want.dtype}")
+            if got.dtype == torch.float32:
+                assert_bits_equal(torch, f"{name} staged upload", got, want)
+            elif not torch.equal(got, want):
+                raise AssertionError(f"{name}: staged upload != the host copy's")
+            calls.append({"ms": ms, "host_copy_ms": host_ms, "chunks": dec.last_upload.get("chunks"),
+                          "bytes": dec.last_upload["bytes"], "rings_made": len(made)})
+        ring = upload.upload_ring(dec.device)
+        second = calls[1]
+        if second["rings_made"]:
+            raise AssertionError(f"{name}: the second staged upload allocated: {second}")
+        if not all(s.is_pinned() for s in ring.slots) or not all(c["chunks"] for c in calls):
+            raise AssertionError(f"{name}: the ring's slots are not pinned or the ring did not engage: {calls}")
+        emit("upload_ring", wav=name, samples=len(view), slots=len(ring.slots), slot_bytes=ring.slot_bytes,
+             calls=calls)
 
 
 def ink(img, center: int) -> int:

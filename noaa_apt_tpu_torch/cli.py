@@ -400,7 +400,10 @@ def main(argv=None, report: dict | None = None) -> int:
     signal or payload copied to the device (``payload_bytes``), the
     PNG's IDAT strips (``png_strips``, 1 where it is one stream), the
     input WAV's size in bytes (``wav_bytes``) and whether its samples are
-    a view of its map (``wav_mapped``; both None for a ``.npy`` input).  A traced
+    a view of its map (``wav_mapped``; both None for a ``.npy`` input), and the
+    pinned ring's slots that the decoder's upload filled (``upload_chunks``:
+    0 where the upload did not go through the ring, None where no decoder
+    ran).  A traced
     run adds the trace's path (``trace``).  Each step's seconds are those of
     its span (``apt.load``, ``apt.decode``, ``apt.finish``, ``apt.save``;
     :mod:`spans`)."""
@@ -594,6 +597,7 @@ def _run(args, report: dict | None) -> int:
             "telemetry_ms": stage_ms.get("telemetry"), "png_strips": png.png_strips(img),
             "wav_bytes": None if npy else Path(args.input_filename).stat().st_size,
             "wav_mapped": None if npy else isinstance(signal, np.memmap),
+            "upload_chunks": upload.get("chunks", 0) if decoder is not None else None,
         })
     return 0
 

@@ -61,6 +61,7 @@ from ..ops.select import select_peaks
 from ..ops.stage import demod_fir_corr
 from ..post.telemetry import telemetry_from_stats
 from ..spans import span
+from . import upload
 
 log = logging.getLogger(__name__)
 
@@ -828,12 +829,26 @@ class Decoder:
         """The first ``n_true`` samples on the device: 16-bit PCM stays
         int16 (K1 converts in-register), anything else becomes f32
         (``dtype`` float32 makes int16 f32 too, as a mixed batch does).
-        A host array's float32 copy is the span ``apt.upload.cast``."""
+        A view of a mapped file whose bytes :func:`upload.locate` finds
+        goes through the pinned ring (:func:`upload.stage`), and the
+        card takes channel 0; its float32 take or conversion is the span
+        ``apt.upload.cast``, as is the float32 copy of any other host
+        array that is not int16."""
         if isinstance(signal, torch.Tensor):
             x = signal[:n_true]
             if x.dtype != torch.int16 or dtype == np.float32:
                 x = x.to(torch.float32)
             return x.to(self.device).contiguous()
+        where = upload.locate(signal, n_true)
+        staged = upload.stage(where, self.device) if where is not None else None
+        if staged is not None:
+            frames, chunks = staged
+            x = frames[:, 0]
+            if where.dtype != np.int16 or dtype == np.float32:
+                with span("apt.upload.cast"):
+                    x = x.to(torch.float32).contiguous()
+            self.last_upload = {"bytes": where.span, "chunks": chunks}
+            return x.contiguous()
         arr = np.asarray(signal)[:n_true]
         if arr.dtype != np.int16 or dtype == np.float32:
             with span("apt.upload.cast"):

@@ -705,3 +705,57 @@ def test_cuda_gui_decode_launches_each_kernel_once(cuda_device, tmp_path, monkey
             assert state.decoded_signal.image.device.type == "cuda"
         images[device.type] = state.processed_image
     np.testing.assert_array_equal(images["cuda"], images["cpu"])
+
+
+def _write_stereo_f32(path, ch0: np.ndarray, ch1: np.ndarray, rate: int) -> None:
+    """SDR#'s layout: 32-bit float, a ``fact`` chunk, the data 58 bytes in."""
+    import struct
+
+    data = np.stack([ch0, ch1], axis=1).astype("<f4")
+    fmt = struct.pack("<HHIIHHH", 3, 2, rate, rate * 8, 8, 32, 0)
+    body = (b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"fact" + struct.pack("<II", 4, len(ch0))
+            + b"data" + struct.pack("<I", data.nbytes) + data.tobytes())
+    path.write_bytes(b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WAVE" + body)
+
+
+@pytest.mark.cuda
+def test_cuda_upload_ring_equals_the_host_copy_and_pins_once(cuda_device, tmp_path, monkeypatch):
+    """A 10-minute 48 kHz stereo float WAV and a mono int16 one, mapped as
+    the CLI loads them, staged through the pinned ring: K1's input is the
+    host copy's upload, ``torch.from_numpy(np.array(view))``, bit for bit;
+    the second upload of each makes no ring and its slots stay pinned."""
+    from noaa_apt_tpu_torch.core.profiles import STANDARD
+    from noaa_apt_tpu_torch.graph import upload
+    from noaa_apt_tpu_torch.io import wav
+
+    rng = np.random.default_rng(23)
+    pcm = rng.integers(-20000, 20000, 48000 * 600, dtype=np.int16)
+    scaled = pcm.astype(np.float32) * np.float32(2.0**-15)
+    _write_stereo_f32(tmp_path / "f32.wav", scaled, -scaled, 48000)
+    wav.write_wav(tmp_path / "i16.wav", pcm.astype(np.float32), wav.WavSpec(1, 48000, 16, "int"))
+    dec = Decoder(STANDARD, device=cuda_device)
+    made = []
+    init = upload.UploadRing.__init__
+
+    def counted(self, *a, **kw):
+        made.append(self)
+        init(self, *a, **kw)
+
+    monkeypatch.setattr(upload.UploadRing, "__init__", counted)
+    for name in ("f32.wav", "i16.wav"):
+        for call in range(2):
+            view = wav.load_device_ready(tmp_path / name)[0]
+            want = torch.from_numpy(np.array(view)).to(cuda_device)
+            made.clear()
+            got = dec._upload(view, len(view))
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and got.is_contiguous()
+            if got.dtype == torch.float32:
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            else:
+                assert torch.equal(got, want)
+            assert dec.last_upload["chunks"] > 0
+            if call:
+                assert made == []
+    ring = upload.upload_ring(cuda_device)
+    assert all(s.is_pinned() for s in ring.slots)

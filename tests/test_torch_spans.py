@@ -104,12 +104,13 @@ def test_without_a_profiler_no_record_function_and_the_report_as_before(passes, 
     assert recorder == []
     assert set(report) == {"ingest_s", "payload_bytes", "load_s", "decode_s", "finish_s", "save_s", "wall_s",
                            "rows", "sync_positions", "stage_ms", "telemetry_ms", "png_strips", "wav_bytes",
-                           "wav_mapped"}
+                           "wav_mapped", "upload_chunks"}
     steps = [report[key] for key, _ in STEPS]
     assert all(s > 0 for s in steps) and sum(steps) <= report["wall_s"] <= sum(steps) + 0.05
     # The decoder's stage clock runs inside the decode step.
     assert sum(report["stage_ms"].values()) / 1e3 <= report["decode_s"]
     assert report["payload_bytes"] == 2 * (len(wav.load_device_ready(passes / "p0.wav")[0]))
+    assert report["upload_chunks"] > 0  # the mapped WAV went through the ring
     with profile(activities=[ProfilerActivity.CPU]):
         with spans.span("apt.test") as s:
             pass

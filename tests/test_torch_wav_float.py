@@ -14,8 +14,9 @@ read-only view of an ``np.memmap`` over the data chunk (strided for
 stereo; SDR#'s layout puts the data 2 bytes off a float, so the view is
 unaligned too), with ``load_wav``'s samples and chunk semantics, and the
 report's ``wav_mapped`` says so.  Every map, the twin's too, records
-``apt.wav.read`` and ``apt.wav.convert`` once each, and the decoder's
-float32 copy of a float file's samples ``apt.upload.cast`` once.  Formats
+``apt.wav.read`` and ``apt.wav.convert`` once each and goes to the
+device through the decoder's ring (``upload_chunks``), and the card's
+float32 take of a float file's channel 0 is ``apt.upload.cast``, once.  Formats
 the decoder does not take as they lie (8-, 24- and 32-bit int, 64-bit
 float) are read as ``load_wav`` reads them, as before.  The CLI's report
 carries the file's size.  Each file loads as the JAX package loads it:
@@ -38,6 +39,7 @@ from noaa_apt_tpu import err as jerr
 from noaa_apt_tpu.io import wav as jwav
 from noaa_apt_tpu_torch import cli, err, serve, spans
 from noaa_apt_tpu_torch.graph import decode as graph_decode
+from noaa_apt_tpu_torch.graph import upload as graph_upload
 from noaa_apt_tpu_torch.io import wav
 
 RATE = 48000
@@ -87,6 +89,7 @@ def decode(path: Path, *flags: str) -> dict:
     mp.setattr(Counted, "names", [])
     mp.setattr(wav, "span", Counted)
     mp.setattr(graph_decode, "span", Counted)
+    mp.setattr(graph_upload, "span", Counted)
     try:
         report: dict = {}
         out = path.with_name("_".join((path.stem, *flags)).replace("-", "") + ".png")
@@ -151,11 +154,13 @@ def test_memmap_path_enters_no_wav_span(runs):
 
 @pytest.mark.parametrize("layout", [*LAYOUTS, "twin"])
 def test_upload_cast_span_once_for_a_float_file(runs, layout):
-    """The decoder's float32 copy of the host samples runs for a float
-    file only: 16-bit PCM, stereo or memmapped, ships as int16."""
+    """The card's float32 take of channel 0 runs for a float file only:
+    16-bit PCM, stereo or memmapped, ships as int16.  Every map goes
+    through the ring once: one ``apt.upload.copy``, one ``apt.upload.h2d``."""
     want = 1 if SPECS[layout][2] == "float" else 0
     assert runs[layout]["spans"].count("apt.upload.cast") == want
     assert runs[layout]["spans"].count("apt.upload.h2d") == 1
+    assert runs[layout]["spans"].count("apt.upload.copy") == 1
 
 
 @pytest.mark.parametrize("layout", [*LAYOUTS, "twin"])
@@ -166,6 +171,7 @@ def test_report_counters_hold_the_files_values(runs, layout):
     assert (spec.channels, spec.bits_per_sample, spec.sample_format) == SPECS[layout]
     assert rep["wav_mapped"] is True
     assert rep["load_s"] > 0
+    assert rep["upload_chunks"] > 0
 
 
 @pytest.mark.parametrize("use_mmap", [True, False])
@@ -198,6 +204,7 @@ def test_report_counters_none_for_a_raw_signal(tmp_path, monkeypatch):
     report: dict = {}
     assert cli.main([str(tmp_path / "raw.npy"), "-o", str(tmp_path / "raw.png"), *ARGS], report=report) == 0
     assert (report["wav_bytes"], report["wav_mapped"]) == (None, None)
+    assert report["upload_chunks"] is None
     assert not {"wav_channels", "wav_bits", "wav_format"} & set(report)
 
 
