@@ -47,7 +47,9 @@ Phases, one JSON line each (``{"phase": ...}``):
    synthesized 10-minute 48 kHz pass with each contrast and colour
    choice (``98_percent``, ``-c telemetry``, ``-c histogram``, ``-F``),
    ``--no-sync``, ``--raw-out`` and then the ``.npy`` re-processed, then
-   on 11025 Hz and 24960 Hz (l == 1) passes, then on the 48 kHz pass as
+   on 11025 Hz and 24960 Hz (l == 1) passes and a 44100 Hz pass with
+   ``-p slow`` (K1 "class" at l 208, m 441, the report's ``k1_variant``
+   "class"), then on the 48 kHz pass as
    a 32-bit float WAV and as a stereo one (K1 "block" on float32) and the
    11025 Hz pass as a 24-bit PCM WAV (K1 "class"), each PNG byte-equal to
    its int16 run's, with the kernels' launch
@@ -821,7 +823,7 @@ def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k
         raise AssertionError(f"PNG is {width}x{height}, expected 2080x{rows}")
     channels = [m for m in names.messages if m.startswith("Channel A:")]
     emit(phase, rate=rate, run=label, flags=list(flags), rows=rows, launches=launches,
-         k1_variant=polyphase_resample.last_variant if k1_variant else None,
+         k1_variant=report["k1_variant"] if k1_variant else None,
          wall_s=report["wall_s"], load_s=report["load_s"], decode_s=report["decode_s"],
          finish_s=report["finish_s"], save_s=report["save_s"], ingest_s=report["ingest_s"],
          payload_bytes=report["payload_bytes"],
@@ -833,12 +835,14 @@ def main_path_phase(torch, wav_path: Path, out_png: Path, rate: int, spr: int, k
 def main_path_runs(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr: int) -> dict:
     """Every contrast and colour choice of the CLI on the 48 kHz pass, the
     unfused paths (--no-sync, --raw-out, the .npy re-process), then the
-    11025 Hz and 24960 Hz passes; then the 48 kHz pass as a 32-bit float
+    11025 Hz and 24960 Hz passes and a 44100 Hz pass on the slow profile
+    (K1 "class", which the report's ``k1_variant`` names); then the 48 kHz pass as a 32-bit float
     WAV (K1 "block" on float32) and the 11025 Hz pass as a 24-bit PCM WAV
     (K1 "class" on float32), each PNG byte-equal to its int16 run's.
     Returns the default run's launches."""
     import numpy as np
 
+    from noaa_apt_tpu_torch.core.profiles import SLOW
     from noaa_apt_tpu_torch.io import png, wav
 
     def run(wav_path, name, rate, variant, *flags, **kw):
@@ -863,6 +867,11 @@ def main_path_runs(torch, tmp: Path, wav48: Path, wav11: Path, wav25: Path, spr:
     emit("npy_vs_raw_out", pixels_differing=int((d > 0).sum()))
     run(wav11, "98_percent", 11025, "class")
     run(wav25, "98_percent", 24960, "block")
+    # A sound card's 44.1 kHz at the slow profile: K1 "class" at m > l (l 208, m 441, T 197).
+    wav44 = tmp / "pass_44100.wav"
+    synth_wav(wav44, 44100, PASS_ROWS)
+    main_path_phase(torch, wav44, tmp / "slow_44100.png", 44100, SLOW.work_rate * 2080 // 4160, "class",
+                    ("-q", "-p", "slow", "-c", "98_percent"), label="slow")
     for src, rate, kind, variant in ((wav48, 48000, "float32", "block"), (wav48, 48000, "float32_stereo", "block"),
                                      (wav11, 11025, "int24", "class")):
         path = tmp / f"pass_{rate}_{kind}.wav"

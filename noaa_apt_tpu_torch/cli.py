@@ -403,7 +403,9 @@ def main(argv=None, report: dict | None = None) -> int:
     a view of its map (``wav_mapped``; both None for a ``.npy`` input), and the
     pinned ring's slots that the decoder's upload filled (``upload_chunks``:
     0 where the upload did not go through the ring, None where no decoder
-    ran).  A traced
+    ran), and the K1 variant of the decode (``k1_variant``: "block",
+    "class", "phase", "plain" on the CPU; None where no decoder ran or K1
+    did not run).  A traced
     run adds the trace's path (``trace``).  Each step's seconds are those of
     its span (``apt.load``, ``apt.decode``, ``apt.finish``, ``apt.save``;
     :mod:`spans`)."""
@@ -598,6 +600,7 @@ def _run(args, report: dict | None) -> int:
             "wav_bytes": None if npy else Path(args.input_filename).stat().st_size,
             "wav_mapped": None if npy else isinstance(signal, np.memmap),
             "upload_chunks": upload.get("chunks", 0) if decoder is not None else None,
+            "k1_variant": decoder.last_k1_variant if decoder is not None else None,
         })
     return 0
 

@@ -623,6 +623,9 @@ class Decoder:
         # payload; and prepare_work's seconds.
         self.last_upload: dict | None = None
         self.last_ingest_s: float | None = None
+        # The K1 variant the last decode launched (polyphase_resample's
+        # ``last_variant``; "plain" on the CPU); None before any K1.
+        self.last_k1_variant: str | None = None
         self._peers: dict = {}
 
     def on_device(self, device) -> "Decoder":
@@ -652,24 +655,29 @@ class Decoder:
         return t
 
     def _device_tables(self, input_rate: Rate) -> _DeviceTables:
+        """K1's tables of ``input_rate`` on the device; a build, the host
+        design and the upload, is the span ``apt.tables``."""
         dt = self._tables.get(input_rate.get_hz())
         if dt is None:
-            t = self.tables(input_rate)
-            up = {k: torch.from_numpy(getattr(t, k)).to(self.device) for k in ("bank", "p_c", "s_c")}
-            dt = _DeviceTables(t, **up)
-            self._tables[input_rate.get_hz()] = dt
+            with span("apt.tables"):
+                t = self.tables(input_rate)
+                up = {k: torch.from_numpy(getattr(t, k)).to(self.device) for k in ("bank", "p_c", "s_c")}
+                dt = _DeviceTables(t, **up)
+                self._tables[input_rate.get_hz()] = dt
         return dt
 
     def _chain(self) -> _DeviceChain:
-        """K2's tables: the override's, else designed for the profile."""
+        """K2's tables: the override's, else designed for the profile (a
+        build is the span ``apt.tables``)."""
         if self._chain_dev is None:
-            t = self._override
-            taps, template, cosphi2, sinphi = (
-                (t.taps, t.template, t.cosphi2, t.sinphi) if t is not None else _chain_design(self.profile))
-            self._chain_dev = _DeviceChain(
-                torch.from_numpy(np.ascontiguousarray(taps, np.float32)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(template, np.int8)).to(self.device),
-                np.float32(cosphi2), dm.inv_sinphi(sinphi))
+            with span("apt.tables"):
+                t = self._override
+                taps, template, cosphi2, sinphi = (
+                    (t.taps, t.template, t.cosphi2, t.sinphi) if t is not None else _chain_design(self.profile))
+                self._chain_dev = _DeviceChain(
+                    torch.from_numpy(np.ascontiguousarray(taps, np.float32)).to(self.device),
+                    torch.from_numpy(np.ascontiguousarray(template, np.int8)).to(self.device),
+                    np.float32(cosphi2), dm.inv_sinphi(sinphi))
         return self._chain_dev
 
     # -- host ingest ---------------------------------------------------
@@ -870,6 +878,7 @@ class Decoder:
             clock.mark("causal_prefix")
         ys = [polyphase_resample(x, dt.bank, dt.p_c, dt.s_c, t.m, t.work_len(n))
               for x, n in zip(xs, n_trues)]
+        self.last_k1_variant = rs.polyphase_resample.last_variant
         clock.mark("resample")
         return self._chain_stage(ys, clock)
 

@@ -37,6 +37,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from ..spans import span
 from . import _build
 
 
@@ -335,14 +336,16 @@ def _table(variant: str, bank: torch.Tensor, p_c: torch.Tensor, s_c: torch.Tenso
     (``extra``: the block variant's stride ``m``, which its fold needs),
     built on the host once and kept while ``bank`` lives and none of the
     three is replaced or written (``_version``): later calls need no host
-    sync."""
+    sync.  A build (the fetch of the three to the host, the table, its
+    upload) is the span ``apt.k1.table``."""
     key = (variant, id(bank), *extra)
     versions = (bank._version, p_c._version, s_c._version)
     hit = _tables.get(key)
     if (hit is not None and hit[1] == versions
             and all(r() is t for r, t in zip(hit[0], (bank, p_c, s_c)))):
         return hit[2]
-    tab = _BUILDERS[variant](bank.cpu().numpy(), p_c.cpu().numpy(), s_c.cpu().numpy(), bank.device, *extra)
+    with span("apt.k1.table"):
+        tab = _BUILDERS[variant](bank.cpu().numpy(), p_c.cpu().numpy(), s_c.cpu().numpy(), bank.device, *extra)
     refs = (weakref.ref(bank, lambda _, k=key: _tables.pop(k, None)),
             weakref.ref(p_c), weakref.ref(s_c))
     _tables[key] = (refs, versions, tab)

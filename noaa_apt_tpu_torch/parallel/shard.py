@@ -35,6 +35,7 @@ from ..core.profiles import DecodeProfile
 from ..device import resolve_device
 from ..graph.decode import _TOO_SHORT, DecodeResult, DecodeTables, Decoder, _StageClock, pad_bucket
 from ..graph.window import HaloGeometry, WindowTables, ceil_to, chunk_alignment, window_resample, window_stage
+from ..ops import resample as rs
 from .dist import GlobalBatch, Mesh
 
 
@@ -185,6 +186,7 @@ class ShardedDecoder(Decoder):
         clock.mark("halo")
         tabs = [self._tables_on(input_rate, dev) for dev in self.devices]
         ys = [window_resample(ext, geom, tb) for ext, tb in zip(windows, tabs)]
+        self.last_k1_variant = rs.polyphase_resample.last_variant
         clock.mark("resample")
         segs = [window_stage(y, geom, k, tb) for k, (y, tb) in enumerate(zip(ys, tabs))]
         clock.mark("demod_fir_corr")

@@ -759,3 +759,35 @@ def test_cuda_upload_ring_equals_the_host_copy_and_pins_once(cuda_device, tmp_pa
                 assert made == []
     ring = upload.upload_ring(cuda_device)
     assert all(s.is_pinned() for s in ring.slots)
+
+
+@pytest.mark.cuda
+def test_cuda_cli_44100_slow_matches_cpu_and_builds_its_tables_in_the_decode(cuda_device, tmp_path, monkeypatch):
+    """``-p slow -c 98_percent`` on a 44100 Hz pass (K1 "class", l 208,
+    m 441): the card's PNG is the CPU's byte for byte, the report names
+    "class", and the call records ``apt.tables`` twice (K1's and K2's
+    tables) and, on the card, ``apt.k1.table`` once, inside ``apt.decode``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from noaa_apt_tpu_torch import cli
+    from noaa_apt_tpu_torch.io import wav
+
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path / "cfg"))
+    signal, _ = synth_recording(n_rows=40, sample_rate=44100, noise_db=20.0, seed=44)
+    wav.write_wav(tmp_path / "pass.wav", signal, wav.WavSpec(1, 44100, 16, "int"))
+    flags = ["-q", "-p", "slow", "-c", "98_percent"]
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        reports[dev] = {}
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            assert cli.main([str(tmp_path / "pass.wav"), "-o", str(tmp_path / f"{dev}.png"), "--device", dev,
+                             *flags], report=reports[dev]) == 0
+        events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events() if e.name().startswith("apt.")]
+        (_, da, db), = [e for e in events if e[0] == "apt.decode"]
+        tables = [e for e in events if e[0] in ("apt.tables", "apt.k1.table")]
+        assert sorted(name for name, _, _ in tables) == ["apt.k1.table"] * (dev == "cuda") + ["apt.tables"] * 2
+        assert all(da <= a <= b <= db for _, a, b in tables)
+    assert reports["cuda"]["k1_variant"] == "class" and reports["cpu"]["k1_variant"] == "plain"
+    assert reports["cuda"]["sync_positions"] == reports["cpu"]["sync_positions"]
+    assert (tmp_path / "cuda.png").read_bytes() == (tmp_path / "cpu.png").read_bytes()
